@@ -1,0 +1,27 @@
+"""paddle_tpu_torch — the PyTorch/CUDA port of paddle_tpu.
+
+The package mirrors ``paddle_tpu``'s module paths, so every file here has
+exactly one counterpart there; ``paddle_tpu`` stays the reference the tests
+hold this package to.  This slice covers Llama serving:
+
+  flags.py           — the serving flags (same names and defaults)
+  core/place.py      — device resolution (CUDA unless the caller asks for
+                       the CPU)
+  nn/                — silu, rms_norm, linear, embedding; Linear, Embedding,
+                       RMSNorm with Paddle's (in, out) weight layout
+  models/llama.py    — Llama with the paged-KV serving forward
+  ops/cuda/          — hand-written Hopper kernels (ctypes-bound, built with
+                       nvcc at first use) and their plain PyTorch versions
+  serving/           — paged KV allocator + prefix cache, continuous-batching
+                       scheduler, ServingEngine
+
+Importing the package needs neither a GPU nor nvcc: kernels are compiled and
+loaded at their first CUDA launch.
+"""
+
+from __future__ import annotations
+
+__version__ = "0.1.0"
+
+from . import flags  # noqa: F401
+from .core.place import resolve_device  # noqa: F401

@@ -1,0 +1,104 @@
+"""Runtime flag registry: the serving flags this slice reads.
+
+Same names, defaults and ``FLAGS_<name>`` environment seeding as
+``paddle_tpu/flags.py``; only the flags the serving path reads are defined.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+from typing import Any, Dict, Iterable, Union
+
+__all__ = ["define_flag", "get_flags", "set_flags", "flag_info"]
+
+_TRUE_STRINGS = {"1", "true", "yes", "on"}
+_FALSE_STRINGS = {"0", "false", "no", "off"}
+
+_lock = threading.RLock()
+_values: Dict[str, Any] = {}
+_defaults: Dict[str, Any] = {}
+_docs: Dict[str, str] = {}
+
+
+def _canon(name: str) -> str:
+    return name[len("FLAGS_"):] if name.startswith("FLAGS_") else name
+
+
+def _coerce(value: Any, ftype: type):
+    if isinstance(value, ftype):
+        return value
+    if isinstance(value, str) and ftype is bool:
+        low = value.strip().lower()
+        if low in _TRUE_STRINGS:
+            return True
+        if low in _FALSE_STRINGS:
+            return False
+        raise ValueError(f"cannot parse boolean flag value {value!r}")
+    return ftype(value)
+
+
+def define_flag(name: str, default: Any, doc: str = "") -> None:
+    with _lock:
+        if name in _values:
+            raise ValueError(f"flag '{name}' is already defined")
+        env = os.environ.get(f"FLAGS_{name}")
+        _defaults[name] = default
+        _docs[name] = doc
+        _values[name] = default if env is None else _coerce(env, type(default))
+
+
+def get_flags(names: Union[str, Iterable[str]]):
+    """Flag values: a scalar for one name, a dict for an iterable."""
+    single = isinstance(names, str)
+    out = {}
+    with _lock:
+        for n in ([names] if single else names):
+            key = _canon(n)
+            if key not in _values:
+                raise KeyError(f"flag '{n}' is not defined")
+            out[key] = _values[key]
+    return next(iter(out.values())) if single else out
+
+
+def set_flags(flags: Dict[str, Any]) -> None:
+    with _lock:
+        for n, v in flags.items():
+            key = _canon(n)
+            if key not in _values:
+                raise KeyError(f"flag '{n}' is not defined")
+            _values[key] = _coerce(v, type(_defaults[key]))
+
+
+def flag_info(name: str) -> Dict[str, Any]:
+    key = _canon(name)
+    with _lock:
+        return {"name": key, "default": _defaults[key], "doc": _docs[key],
+                "value": _values[key]}
+
+
+define_flag("serving_block_size", 16,
+            "Tokens per KV-cache page in the serving engine's paged "
+            "allocator (serving/kv_cache.py).")
+define_flag("serving_num_blocks", 512,
+            "Pages in the preallocated KV-cache pool, per layer (K and V "
+            "each). Page 0 is the padding sink, so serving_num_blocks - 1 "
+            "pages are usable.")
+define_flag("serving_max_batch", 8,
+            "Decode batch of the continuous-batching scheduler: every "
+            "decode step runs at exactly this batch, padded with inert "
+            "rows.")
+define_flag("serving_prefill_chunk", 128,
+            "Prefill token budget per scheduler step; shorter chunks are "
+            "padded to it.")
+define_flag("serving_prefix_cache", "on",
+            "Cross-request prefix cache over the paged KV pool "
+            "(content-hashed full blocks, refcounts, copy-on-write, LRU). "
+            "'off' gives every request private block tables. Read at "
+            "engine/pool construction.")
+define_flag("serving_use_rpa_kernel", "auto",
+            "Ragged paged attention decode kernel dispatch: 'auto' uses the "
+            "CUDA kernel when the engine runs on a CUDA device and the plain "
+            "gather path on the CPU; 'on'/'off' force one path ('on' on the "
+            "CPU routes decode through the kernel wrapper, which computes "
+            "its plain version for CPU tensors).")

@@ -1,0 +1,289 @@
+"""Llama (counterpart of ``paddle_tpu/models/llama.py``).
+
+Single-device form of the reference model: the q/k/v/gate/up/o/down
+projections are plain :class:`Linear` layers with Paddle's ``(in, out)``
+weights, so parameter names and shapes match the reference's
+``named_parameters()`` 1:1 (``load_reference_arrays`` carries weights
+across).  Two attention paths: the serving path (RoPE at explicit absolute
+positions, K/V written into the paged pool, attention through the block
+tables) and a plain full-sequence causal path for whole-sequence forwards.
+
+RoPE rotates INTERLEAVED pairs ``(x[..., 0::2], x[..., 1::2])``, exactly as
+the reference's ``_rope_fwd``/``_rope_at_fwd`` do.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..core.dtype import to_torch_dtype
+from ..core.place import resolve_device
+from ..nn import functional as F
+from ..nn.layer import Embedding, Linear, RMSNorm
+
+__all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
+           "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
+           "llama_7b_config", "llama_tiny_config", "rope_at",
+           "load_reference_arrays"]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: int = 32
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "float32"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+
+def llama_7b_config(**overrides) -> LlamaConfig:
+    return LlamaConfig(**{**dict(dtype="bfloat16"), **overrides})
+
+
+def llama_tiny_config(**overrides) -> LlamaConfig:
+    base = dict(vocab_size=256, hidden_size=64, intermediate_size=160,
+                num_hidden_layers=2, num_attention_heads=4,
+                num_key_value_heads=2, max_position_embeddings=128)
+    return LlamaConfig(**{**base, **overrides})
+
+
+def _rope_tables(head_dim: int, max_len: int, theta: float, device):
+    inv_freq = 1.0 / (theta ** (torch.arange(0, head_dim, 2,
+                                             dtype=torch.float32,
+                                             device=device) / head_dim))
+    t = torch.arange(max_len, dtype=torch.float32, device=device)
+    freqs = torch.outer(t, inv_freq)                  # (L, D/2)
+    return torch.cos(freqs), torch.sin(freqs)
+
+
+def rope_at(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """RoPE at explicit absolute positions, in f32, cast back.
+    x: (B, S, H, D); positions: (B, S) integer."""
+    xf = x.float()
+    x1 = xf[..., 0::2]
+    x2 = xf[..., 1::2]
+    c = cos[positions][:, :, None, :]                 # (B, S, 1, D/2)
+    s = sin[positions][:, :, None, :]
+    r1 = x1 * c - x2 * s
+    r2 = x2 * c + x1 * s
+    return torch.stack([r1, r2], dim=-1).reshape(xf.shape).to(x.dtype)
+
+
+def _causal_attention(q, k, v, scale: float) -> torch.Tensor:
+    """Plain causal attention, (B, S, H, D) in and out: scores in q's dtype
+    then f32 softmax, probs back in q's dtype for the PV product (the
+    reference's ``sdpa`` math path)."""
+    h, hkv = q.shape[2], k.shape[2]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
+    sq = q.shape[1]
+    causal = torch.ones(sq, sq, dtype=torch.bool, device=q.device).tril()
+    logits = logits.masked_fill(~causal, float("-inf"))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator) -> None:
+        super().__init__()
+        self.config = config
+        h = config.hidden_size
+        dt = to_torch_dtype(config.dtype)
+        self.num_heads = config.num_attention_heads
+        self.num_kv_heads = config.num_key_value_heads
+        self.head_dim = config.head_dim
+        kv_out = self.num_kv_heads * self.head_dim
+        kw = dict(bias=False, dtype=dt, device=device, generator=generator)
+        self.q_proj = Linear(h, h, **kw)
+        self.k_proj = Linear(h, kv_out, **kw)
+        self.v_proj = Linear(h, kv_out, **kw)
+        self.o_proj = Linear(h, h, **kw)
+        cos, sin = _rope_tables(self.head_dim,
+                                config.max_position_embeddings,
+                                config.rope_theta, device)
+        self.register_buffer("_cos", cos, persistent=False)
+        self.register_buffer("_sin", sin, persistent=False)
+
+    def forward(self, hidden, cache=None, positions=None):
+        b, s = hidden.shape[0], hidden.shape[1]
+        q = self.q_proj(hidden).view(b, s, self.num_heads, self.head_dim)
+        k = self.k_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        v = self.v_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
+        if positions is None:
+            positions = torch.arange(s, device=hidden.device).expand(b, s)
+        q = rope_at(q, self._cos, self._sin, positions)
+        k = rope_at(k, self._cos, self._sin, positions)
+        if cache is not None:
+            # serving: new K/V into the paged pool, attention through the
+            # block tables (the cache picks the decode kernel or the
+            # gather path)
+            cache.update(k, v)
+            out = cache.attend(q)
+        else:
+            out = _causal_attention(q, k, v, 1.0 / math.sqrt(self.head_dim))
+        return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
+
+
+class LlamaMLP(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator) -> None:
+        super().__init__()
+        h, inter = config.hidden_size, config.intermediate_size
+        kw = dict(bias=False, dtype=to_torch_dtype(config.dtype),
+                  device=device, generator=generator)
+        self.gate_proj = Linear(h, inter, **kw)
+        self.up_proj = Linear(h, inter, **kw)
+        self.down_proj = Linear(inter, h, **kw)
+
+    def forward(self, x):
+        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator) -> None:
+        super().__init__()
+        dt = to_torch_dtype(config.dtype)
+        self.input_layernorm = RMSNorm(config.hidden_size,
+                                       config.rms_norm_eps, dtype=dt,
+                                       device=device)
+        self.self_attn = LlamaAttention(config, device, generator)
+        self.post_attention_layernorm = RMSNorm(config.hidden_size,
+                                                config.rms_norm_eps,
+                                                dtype=dt, device=device)
+        self.mlp = LlamaMLP(config, device, generator)
+
+    def forward(self, hidden, cache=None, positions=None):
+        residual = hidden
+        hidden = self.input_layernorm(hidden)
+        hidden = self.self_attn(hidden, cache=cache, positions=positions)
+        hidden = residual + hidden
+        residual = hidden
+        hidden = self.post_attention_layernorm(hidden)
+        return residual + self.mlp(hidden)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, config: LlamaConfig, device, generator) -> None:
+        super().__init__()
+        self.config = config
+        dt = to_torch_dtype(config.dtype)
+        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
+                                      dtype=dt, device=device,
+                                      generator=generator)
+        self.layers = nn.ModuleList(
+            [LlamaDecoderLayer(config, device, generator)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
+                            dtype=dt, device=device)
+
+    def forward(self, input_ids, caches=None, positions=None):
+        hidden = self.embed_tokens(input_ids)
+        for i, layer in enumerate(self.layers):
+            hidden = layer(hidden, cache=None if caches is None
+                           else caches[i], positions=positions)
+        return self.norm(hidden)
+
+
+class LlamaForCausalLM(nn.Module):
+    """``device=None`` builds on the card (raising when there is none);
+    pass ``device="cpu"`` for the CPU.  Weights are drawn on the target
+    device from a ``torch.Generator`` seeded with ``seed``."""
+
+    def __init__(self, config: LlamaConfig, device=None, seed: int = 0
+                 ) -> None:
+        super().__init__()
+        device = resolve_device(device)
+        gen = torch.Generator(device=device)
+        gen.manual_seed(int(seed))
+        self.config = config
+        self.llama = LlamaModel(config, device, gen)
+        self.lm_head = None if config.tie_word_embeddings else Linear(
+            config.hidden_size, config.vocab_size, bias=False,
+            dtype=to_torch_dtype(config.dtype), device=device,
+            generator=gen)
+        self._serving_engine = None
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """Full-sequence causal forward: (B, S) ids → (B, S, vocab)."""
+        hidden = self.llama(input_ids)
+        if self.lm_head is None:
+            return F.linear(hidden, self.llama.embed_tokens.weight.t())
+        return self.lm_head(hidden)
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    def generate(self, prompts, max_new_tokens: int = 16, eos_id=None,
+                 engine=None, **engine_kwargs):
+        """Greedy generation through the serving engine (paged KV cache +
+        continuous batching).  ``prompts``: one token-id list or a list of
+        them; returns the generated ids (a list per prompt, or one list for
+        a single prompt).  The engine is built on the first call from
+        ``engine_kwargs`` (block_size, num_blocks, max_batch, ...,
+        ``device`` — None means the card) and cached on the model."""
+        from ..serving.engine import ServingEngine
+        single = bool(prompts) and isinstance(prompts[0], int)
+        batch = [list(prompts)] if single else [list(p) for p in prompts]
+        if engine is not None:
+            if engine_kwargs:
+                raise ValueError(
+                    f"engine= was passed, so engine_kwargs "
+                    f"{sorted(engine_kwargs)} would be ignored — size the "
+                    f"engine where it is built instead")
+            self._serving_engine = engine
+        elif self._serving_engine is None:
+            self._serving_engine = ServingEngine(self, **engine_kwargs)
+        elif engine_kwargs:
+            raise ValueError(
+                f"serving engine already built for this model; "
+                f"engine_kwargs {sorted(engine_kwargs)} would be ignored — "
+                f"size the engine on the first generate() call, pass "
+                f"engine=, or clear model._serving_engine first")
+        outs = self._serving_engine.generate(batch, max_new_tokens,
+                                             eos_id=eos_id)
+        return outs[0] if single else outs
+
+
+def load_reference_arrays(model: LlamaForCausalLM,
+                          arrays: Dict[str, np.ndarray]) -> None:
+    """Load the reference model's parameters, as numpy arrays keyed by the
+    reference's names (``llama.layers.0.self_attn.q_proj.weight``, ...,
+    ``lm_head.weight``), into ``model``, cast to each parameter's dtype.
+    Raises on a missing name, an unexpected name or a shape mismatch; loads
+    nothing unless every array fits."""
+    params = dict(model.named_parameters())
+    missing = sorted(set(params) - set(arrays))
+    unexpected = sorted(set(arrays) - set(params))
+    if missing or unexpected:
+        raise KeyError(f"reference arrays do not match the model: missing "
+                       f"{missing}, unexpected {unexpected}")
+    bad: List[str] = [
+        f"{n}: reference {tuple(np.shape(a))} vs model "
+        f"{tuple(params[n].shape)}"
+        for n, a in arrays.items() if tuple(np.shape(a)) != tuple(
+            params[n].shape)]
+    if bad:
+        raise ValueError("shape mismatch: " + "; ".join(bad))
+    with torch.no_grad():
+        for name, a in arrays.items():
+            p = params[name]
+            p.copy_(torch.from_numpy(np.array(a, np.float32))
+                    .to(dtype=p.dtype, device=p.device))

@@ -1,0 +1,6 @@
+"""Hand-written Hopper kernels (CUDA C++ for sm_90a, sources in ``csrc/``)
+and their plain PyTorch versions.  Kernels build at their first launch."""
+
+from .attention import (  # noqa: F401
+    LAUNCH_COUNTS, ragged_paged_attention_decode,
+    ragged_paged_attention_decode_ref, reset_launch_counts)

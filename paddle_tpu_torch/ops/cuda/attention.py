@@ -1,0 +1,175 @@
+"""Ragged paged attention decode: the CUDA kernel's wrapper and its plain
+PyTorch version.
+
+Counterpart of ``paddle_tpu/ops/pallas/attention.py``
+``ragged_paged_attention_decode`` (TPU kernel ``_rpa_decode_kernel``); the
+kernel is ``csrc/rpa_decode.cu``.
+
+``ragged_paged_attention_decode`` checks its arguments, then computes the
+plain version for CPU tensors and launches the kernel for CUDA tensors —
+there is no other route, and no fallback from a failed build or launch.
+``LAUNCH_COUNTS`` counts kernel launches (plain-version calls do not
+count), so a run can show that its decode steps went through the kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+__all__ = ["ragged_paged_attention_decode",
+           "ragged_paged_attention_decode_ref", "LAUNCH_COUNTS",
+           "reset_launch_counts", "MAX_HEAD_DIM"]
+
+MAX_HEAD_DIM = 256
+_BIG_NEG = -1e30   # finite, as the TPU kernel: masked scores, never -inf
+_DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# a Hopper block may opt in to 227 KB of shared memory
+_MAX_SMEM_BYTES = 232448
+
+LAUNCH_COUNTS = {"rpa_decode": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCH_COUNTS:
+        LAUNCH_COUNTS[name] = 0
+
+
+def _check_args(q, k_pages, v_pages, block_tables, seq_lens) -> None:
+    if q.dim() != 3:
+        raise ValueError(f"q must be (B, H, D), got shape {tuple(q.shape)}")
+    if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
+        raise ValueError(
+            f"k_pages/v_pages must both be (num_pages, page, Hkv, D), got "
+            f"{tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
+    b, h, d = q.shape
+    hkv = k_pages.shape[2]
+    if k_pages.shape[3] != d:
+        raise ValueError(f"head_dim mismatch: q has {d}, pools have "
+                         f"{k_pages.shape[3]}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} > {MAX_HEAD_DIM} is not supported")
+    if h % hkv:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads "
+                         f"({hkv})")
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"unsupported dtype {q.dtype}; expected float32, "
+                        f"float16 or bfloat16")
+    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"q and the pools must share one dtype, got "
+                        f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != b:
+        raise ValueError(f"block_tables must be (B={b}, P), got "
+                         f"{tuple(block_tables.shape)}")
+    if seq_lens.shape != (b,):
+        raise ValueError(f"seq_lens must be (B={b},), got "
+                         f"{tuple(seq_lens.shape)}")
+    for name, t in (("block_tables", block_tables), ("seq_lens", seq_lens)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
+    devices = {t.device for t in (q, k_pages, v_pages, block_tables,
+                                  seq_lens)}
+    if len(devices) != 1:
+        raise ValueError(f"all arguments must be on one device, got "
+                         f"{sorted(str(x) for x in devices)}")
+
+
+def ragged_paged_attention_decode_ref(q, k_pages, v_pages, block_tables,
+                                      seq_lens, scale: Optional[float] = None):
+    """Plain PyTorch version of the decode kernel: gather every table page,
+    f32 scores, positions >= len masked with -1e30 and p forced to 0, and
+    len == 0 rows giving exact zeros.  q: (B, H, D); returns (B, H, D) in
+    q's dtype."""
+    b, h, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    bt = block_tables.long()
+    t = bt.shape[1] * page
+    k = k_pages[bt].reshape(b, t, hkv, d).float()
+    v = v_pages[bt].reshape(b, t, hkv, d).float()
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=2)
+        v = v.repeat_interleave(h // hkv, dim=2)
+    s = torch.einsum("bhd,bthd->bht", q.float(), k) * scale
+    valid = (torch.arange(t, device=q.device)[None, :]
+             < seq_lens.long()[:, None])[:, None, :]          # (B, 1, T)
+    s = torch.where(valid, s, torch.full_like(s, _BIG_NEG))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(valid, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bht,bthd->bhd", p, v) / torch.where(
+        l > 0, l, torch.ones_like(l))
+    return out.to(q.dtype)
+
+
+_LIB = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _LIB
+    if _LIB is None:
+        lib = _build.load("rpa_decode")
+        lib.rpa_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        lib.rpa_decode.restype = ctypes.c_int
+        lib.rpa_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.rpa_decode_smem_bytes.restype = ctypes.c_size_t
+        lib.rpa_decode_error_string.argtypes = [ctypes.c_int]
+        lib.rpa_decode_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float):
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError("k_pages/v_pages must be contiguous")
+    lib = _lib()
+    b, h, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    smem = lib.rpa_decode_smem_bytes(h // hkv, d)
+    if smem > _MAX_SMEM_BYTES:
+        raise ValueError(f"{h // hkv} query heads per kv head at head_dim "
+                         f"{d} need {smem} bytes of shared memory per block "
+                         f"(> {_MAX_SMEM_BYTES})")
+    q = q.contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    sl = seq_lens.to(torch.int32).contiguous()
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.rpa_decode(q.data_ptr(), k_pages.data_ptr(),
+                            v_pages.data_ptr(), bt.data_ptr(), sl.data_ptr(),
+                            out.data_ptr(), b, h, hkv, d, page, bt.shape[1],
+                            scale, _DTYPE_CODES[q.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"rpa_decode launch failed: CUDA error {rc} "
+            f"({lib.rpa_decode_error_string(rc).decode()})")
+    LAUNCH_COUNTS["rpa_decode"] += 1
+    return out
+
+
+def ragged_paged_attention_decode(q, k_pages, v_pages, block_tables,
+                                  seq_lens, scale: Optional[float] = None):
+    """Paged attention for one query token per sequence.
+
+    ``q``: (B, H, D).  ``k_pages``/``v_pages``: (num_pages, page, Hkv, D),
+    H % Hkv == 0, D <= 256, one dtype shared with q (float32, float16 or
+    bfloat16).  ``block_tables``: (B, P) page ids, padded with page 0.
+    ``seq_lens``: (B,) valid tokens per sequence INCLUDING the current one;
+    0 marks an inert slot, which outputs zeros.  Returns (B, H, D) in q's
+    dtype.  CPU tensors get the plain version; CUDA tensors the kernel."""
+    _check_args(q, k_pages, v_pages, block_tables, seq_lens)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_decode_ref(q, k_pages, v_pages,
+                                                 block_tables, seq_lens,
+                                                 scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    return _launch(q, k_pages, v_pages, block_tables, seq_lens, scale)
