@@ -7,9 +7,10 @@ Phases, each of which raises on failure (the script then exits non-zero
 and prints no result line):
 
 1. device — the card's name, count, and ``nvidia-smi`` name/power limit;
-2. build  — nvcc compiles every kernel source of the package (sm_90a);
+2. build  — nvcc compiles every kernel source of the package (sm_90a), one
+   process per source, all started together;
 3. kernel — each kernel against its plain PyTorch version on the same
-   inputs at the serving path's shapes, plus edge cases; kernel, plain and
+   inputs at the main paths' shapes, plus edge cases; kernel, plain and
    library times with CUDA events (L2 flushed between launches) and the
    card's bound for the same work;
 4. serve  — Llama-7B at full width and depth (random weights from a seed,
@@ -17,7 +18,15 @@ and prints no result line):
    around the run, first-decode-step logits held against an engine on the
    plain gather path, and a tiny f32 model's tokens held against a
    full-recompute greedy reference; a torch.profiler breakdown of
-   batch-8 decode steps says where a step's time goes.
+   batch-8 decode steps says where a step's time goes;
+5. train  — Llama-7B width (hidden 4096, intermediate 11008, 32 heads,
+   seq 4096, bf16; the layer count by bench.py's memory rule) trained
+   eagerly with AdamW, bench_llama's optimizer and data: one warm-up and
+   three timed steps on one batch, launch counts read around them, losses
+   finite and falling;
+6. train parity — a tiny f32 Llama takes three AdamW steps on the card
+   (through the kernels) and on the CPU (through their plain versions)
+   in this process; losses and parameters must agree.
 
 The second-to-last stdout line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -47,6 +56,23 @@ TOL = {torch.float32: (1e-5, 1e-5), torch.float16: (2e-3, 2e-3),
 # keeps f32, and 32 layers carry the difference to the logits.  Bound on
 # ||a - b|| / ||b|| over the compared rows.
 LOGITS_REL_TOL = 0.05
+# Flash kernels vs plain versions.  float32: elementwise atol/rtol 1e-5 at
+# the small shapes checked (both sum in f32, in another order).  16-bit
+# inputs: the kernels round each probability tile to the input type
+# against a running row max and the plain version against the final one,
+# so single probabilities may sit one ulp apart, and dq/dk/dv sum such
+# products over up to 4096 keys or queries: elementwise bounds are too
+# tight, so the bound is ||kernel - plain|| <= tol ||plain|| over the
+# tensor, plus an RMS floor of 1e-5 a element for gradients that vanish
+# (at S=1, dq = dk = 0 exactly and both sides hold rounding noise of
+# ~1e-6).  lse is f32 in both: 1e-5 relative.
+FLASH_REL_TOL = {torch.float16: 2e-3, torch.bfloat16: 1e-2}
+FLASH_RMS_FLOOR = 1e-5
+# Train parity, tiny f32 Llama on the card vs the CPU (f32 matmuls on the
+# card in full f32: TF32 is off): the loss within 1e-4 relative at every
+# step; after 3 AdamW steps every parameter within 1e-4 relative L2.
+PARITY_LOSS_RTOL = 1e-4
+PARITY_PARAM_RTOL = 1e-4
 # Peak device-memory bandwidth (bytes/s) and dense rates (ops/s) by card,
 # NVIDIA data sheets (SXM parts unless named).
 PEAK_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
@@ -91,7 +117,7 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
 
 
-# -- phase 3: kernel vs plain ----------------------------------------------
+# -- phase 3: kernels vs plain ----------------------------------------------
 
 def rpa_inputs(batch, heads, kv_heads, d, page, max_pages, num_pages, lens,
                dtype, seed):
@@ -158,7 +184,6 @@ def phase_kernel(card, bw):
     import torch.nn.functional as tf
     from paddle_tpu_torch.ops.cuda.attention import (
         ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
-    log("[3/4] kernel vs plain version")
     bf16 = torch.bfloat16
     # the serving phase's decode shape: B=8, H=Hkv=32, D=128, page 16,
     # 2048 pages, tables 64 wide (max_seq_len 1024); ragged lengths with an
@@ -201,6 +226,176 @@ def phase_kernel(card, bw):
             "launches": None, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def flash_inputs(batch, heads, kv_heads, s, d, dtype, seed):
+    """q, k, v, dO (B, H, S, D) from a seeded generator on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def make(h):
+        return torch.randn(batch, h, s, d, generator=g,
+                           device="cuda").to(dtype)
+    return make(heads), make(kv_heads), make(kv_heads), make(heads)
+
+
+def flash_compare(name, got, want, dtype):
+    """Max abs error; raises past the tolerance (FLASH_REL_TOL)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if dtype == torch.float32:
+        atol, rtol = TOL[torch.float32]
+        bad = int((err > atol + rtol * w.abs()).sum())
+        if bad:
+            raise AssertionError(f"{name}: {bad} elements past atol {atol} "
+                                 f"rtol {rtol}")
+    else:
+        diff, ref = (g - w).norm().item(), w.norm().item()
+        if diff > FLASH_REL_TOL[dtype] * ref + \
+                FLASH_RMS_FLOOR * math.sqrt(w.numel()):
+            raise AssertionError(
+                f"{name}: L2 error {diff:.3e} > {FLASH_REL_TOL[dtype]} x "
+                f"{ref:.3e} + {FLASH_RMS_FLOOR} x sqrt({w.numel()})")
+    return err.max().item()
+
+
+def flash_case(label, batch, heads, kv_heads, s, d, dtype, causal, seed):
+    """Each flash kernel against its plain version on the same inputs (the
+    backward kernels from the plain forward's out and lse).  Returns the
+    inputs and the max abs error of each kernel."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v, do = flash_inputs(batch, heads, kv_heads, s, d, dtype, seed)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal)
+    dq = fa.flash_attention_dq(q, k, v, ro, rl, do, causal)
+    rq = fa.flash_attention_dq_ref(q, k, v, ro, rl, do, causal)
+    dk, dv = fa.flash_attention_dkv(q, k, v, ro, rl, do, causal)
+    rk, rv = fa.flash_attention_dkv_ref(q, k, v, ro, rl, do, causal)
+    torch.cuda.synchronize()
+    lse_err = (lse - rl).abs()
+    if bool((lse_err > 1e-5 * rl.abs() + 1e-5).any()):
+        raise AssertionError(f"{label}: lse past 1e-5 relative, max abs "
+                             f"{lse_err.max().item():.3e}")
+    errs = {"flash_fwd": max(flash_compare(f"{label} out", out, ro, dtype),
+                             lse_err.max().item()),
+            "flash_dq": flash_compare(f"{label} dq", dq, rq, dtype),
+            "flash_dkv": max(flash_compare(f"{label} dk", dk, rk, dtype),
+                             flash_compare(f"{label} dv", dv, rv, dtype))}
+    rel = {n: ((a.float() - b.float()).norm()
+               / b.float().norm().clamp_min(1e-30)).item()
+           for n, a, b in (("out", out, ro), ("dq", dq, rq), ("dk", dk, rk),
+                           ("dv", dv, rv))}
+    log(f"  {label}: B={batch} H={heads} Hkv={kv_heads} S={s} D={d} "
+        f"{str(dtype).replace('torch.', '')} "
+        f"{'causal' if causal else 'full'}; max abs err fwd "
+        f"{errs['flash_fwd']:.3e} dq {errs['flash_dq']:.3e} dkv "
+        f"{errs['flash_dkv']:.3e}; rel L2 "
+        + " ".join(f"{n} {r:.2e}" for n, r in rel.items()))
+    return (q, k, v, do, ro, rl), errs
+
+
+def flash_visible(sq, sk, causal):
+    """Query-key pairs inside the attention pattern."""
+    return sq * (sq + 1) // 2 if causal else sq * sk
+
+
+def flash_bounds(q, k, causal, bw):
+    """Least time of each kernel at these inputs: each input read once and
+    each output written once over the memory rate, or the products'
+    multiply-adds over the dense rate of the input type; the larger."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    el = q.element_size()
+    vis = flash_visible(sq, sk, causal)
+    qo = b * h * sq * d * el            # q, out, dO or dq
+    kv = b * hkv * sk * d * el          # k, v, dk or dv
+    lse = 4 * b * h * sq
+    work = {"flash_fwd": (2, 2 * qo + 2 * kv + lse),          # QK, PV
+            "flash_dq": (3, 4 * qo + 2 * kv + lse),           # + dO V, dS K
+            "flash_dkv": (4, 3 * qo + 4 * kv + lse)}          # + P dO, dS Q
+    out = {}
+    for name, (products, nbytes) in work.items():
+        t_ops = 2 * products * b * h * vis * d / PEAK_OPS[q.dtype] * 1e3
+        t_bytes = nbytes / bw * 1e3
+        out[name] = (t_ops, "operations") if t_ops >= t_bytes else \
+            (t_bytes, "bytes")
+    return out
+
+
+def phase_flash_kernels(card, bw):
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    errs = {}
+    cases = [
+        # the train phase's shape: B=1, H=32, S=4096, D=128, bf16, causal
+        ("training shape", 1, 32, 32, 4096, 128, bf16, True),
+        ("GQA 32q/8kv", 1, 32, 8, 2048, 128, bf16, True),
+        ("S=1000, ragged last tile", 2, 8, 8, 1000, 128, bf16, True),
+        ("S=1", 2, 8, 2, 1, 128, f16, True),
+        ("D=64", 2, 16, 16, 512, 64, bf16, True),
+        ("non-causal, ragged, GQA", 1, 16, 4, 777, 128, bf16, False),
+        ("float16", 1, 16, 16, 1024, 128, f16, True),
+        ("float32", 2, 8, 2, 300, 64, f32, True),
+        ("float32 non-causal D=128", 1, 4, 4, 200, 128, f32, False),
+        ("float32, the train-parity shape (D=16)", 2, 4, 2, 128, 16, f32,
+         True),
+    ]
+    main = None
+    for i, case in enumerate(cases):
+        inputs, e = flash_case(*case, seed=SEED + 10 + i)
+        for name, v in e.items():
+            errs[name] = max(errs.get(name, 0.0), v)
+        if main is None:
+            main = inputs
+    q, k, v, do, out, lse = main
+    causal = True
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                              causal)),
+          "flash_dq": time_ms(lambda: fa.flash_attention_dq(
+              q, k, v, out, lse, do, causal)),
+          "flash_dkv": time_ms(lambda: fa.flash_attention_dkv(
+              q, k, v, out, lse, do, causal))}
+    plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd_ref(
+                 q, k, v, causal), iters=5, warmup=1),
+             "flash_dq": time_ms(lambda: fa.flash_attention_dq_ref(
+                 q, k, v, out, lse, do, causal), iters=5, warmup=1),
+             "flash_dkv": time_ms(lambda: fa.flash_attention_dkv_ref(
+                 q, k, v, out, lse, do, causal), iters=5, warmup=1)}
+    # library yardstick, never on the path: SDPA forward, and forward +
+    # backward (one backward computes dq, dk and dv together)
+    lib_fwd = time_ms(lambda: tf.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = tf.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+    lib_fwd_bwd = time_ms(sdpa_fwd_bwd)
+    bounds = flash_bounds(q, k, causal, bw)
+    log(f"  timing at the training shape ({card}), ms: " + "; ".join(
+        f"{n} kernel {ms[n]:.4f} plain {plain[n]:.4f} bound "
+        f"{bounds[n][0]:.4f} ({bounds[n][1]})" for n in ms))
+    log(f"  library (never on the path): SDPA is_causal forward "
+        f"{lib_fwd:.4f} ms, forward+backward {lib_fwd_bwd:.4f} ms "
+        f"(backward alone {lib_fwd_bwd - lib_fwd:.4f} ms, dq/dk/dv "
+        f"together); the three kernels together {sum(ms.values()):.4f} ms")
+    src = {"flash_fwd": ("flash_fwd.cu", "paddle_tpu/ops/pallas/"
+                                         "attention.py:99"),
+           "flash_dq": ("flash_bwd.cu", "paddle_tpu/ops/pallas/"
+                                        "attention.py:214"),
+           "flash_dkv": ("flash_bwd.cu", "paddle_tpu/ops/pallas/"
+                                         "attention.py:262")}
+    return [{"name": n, "route": "cuda",
+             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src[n][0]}",
+             "replaces": src[n][1], "launches": None,
+             "max_abs_err": errs[n], "ms": ms[n], "plain_ms": plain[n],
+             "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+             # SDPA's forward computes the forward's function; no single
+             # library call computes dq alone or dk/dv alone
+             "library_ms": lib_fwd if n == "flash_fwd" else None}
+            for n in ms]
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -285,7 +480,7 @@ def phase_serve(card):
     from paddle_tpu_torch.ops.cuda.attention import (LAUNCH_COUNTS,
                                                      reset_launch_counts)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/4] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/6] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -385,6 +580,164 @@ def phase_serve(card):
     return launches
 
 
+# -- phase 5: train -----------------------------------------------------------
+
+def train_layers(total_memory: int, hidden: int, inter: int,
+                 vocab: int) -> int:
+    """bench.py's bench_llama rule: bf16 parameter + grad + f32 moments =
+    12 bytes a parameter within 72 % of the card's memory (the rest for
+    activations and workspace), at most 32 layers."""
+    per_layer = 4 * hidden * hidden + 3 * hidden * inter + 2 * hidden
+    embed = 2 * vocab * hidden
+    layers = int((total_memory * 0.72 / 12 - embed) // per_layer)
+    return max(1, min(layers, 32))
+
+
+def phase_train(card, peak_ops):
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from paddle_tpu_torch.optimizer import AdamW
+    hidden, inter, heads, seq, vocab, batch = 4096, 11008, 32, 4096, 32000, 1
+    total = torch.cuda.get_device_properties(0).total_memory
+    layers = train_layers(total, hidden, inter, vocab)
+    log(f"[5/6] train Llama-7B width, {layers} of 32 layers (bench.py's "
+        f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
+        f"bf16, eager AdamW")
+    cfg = LlamaConfig(vocab_size=vocab, hidden_size=hidden,
+                      intermediate_size=inter, num_hidden_layers=layers,
+                      num_attention_heads=heads, num_key_value_heads=heads,
+                      max_position_embeddings=seq, dtype="bfloat16")
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    n_params = model.num_params()
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01)
+    # bench_llama's data: ids then labels from RandomState(0)
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, vocab, (batch, seq))
+                           .astype(np.int64)).cuda()
+    labels = torch.from_numpy(rng.randint(0, vocab, (batch, seq))
+                              .astype(np.int64)).cuda()
+
+    def step():
+        loss = model.compute_loss(model(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    steps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses = [step()]
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = dict(LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    tokens_s = batch * seq / step_s
+    # bench_llama's model FLOPs: 6N a token for the parameters + 12 L h s
+    # for the attention products
+    flops_tok = 6.0 * n_params + 12.0 * layers * hidden * seq
+    mfu = tokens_s * flops_tok / peak_ops
+    log(f"  {n_params / 1e9:.3f} B parameters; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (warm-up step first, {warm_s:.2f} s)")
+    log(f"  [{card}] step {step_s * 1e3:.1f} ms, {tokens_s:,.1f} tokens/s, "
+        f"MFU {mfu:.4f} (bench_llama's formula at {peak_ops / 1e12:.0f} "
+        f"TFLOP/s), peak memory {peak / 1e9:.2f} GB")
+    expect = layers * (steps + 1)
+    log(f"  launches over the {steps + 1} steps: " + ", ".join(
+        f"{n} {launches[n]}" for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+        + f" (layers x steps = {expect})")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall on the repeated batch: "
+                             f"{losses}")
+    for n in ("flash_fwd", "flash_dq", "flash_dkv"):
+        if launches[n] != expect:
+            raise AssertionError(f"{n} launched {launches[n]} times, "
+                                 f"expected {expect}")
+    profile_train_step(step, card)
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train_step(step, card) -> None:
+    """Where a train step's time goes: one more step under torch.profiler
+    (after the launch counts were read), device time by kernel and the
+    device's busy share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # kernels only: an operator row also carries its kernels' device time
+    rows = [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    device_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"  [{card}] profiled train step: {wall_ms:.1f} ms wall, device "
+        f"busy {device_ms:.1f} ms ({device_ms / wall_ms:.1%}), "
+        f"{sum(e.count for e in rows)} kernel launches")
+    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms "
+            f"{e.count:6d}x  {e.key[:90]}")
+
+
+def phase_train_parity():
+    """A tiny f32 Llama, 3 AdamW steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batch."""
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_tiny_config)
+    from paddle_tpu_torch.optimizer import AdamW
+    log("[6/6] train parity: tiny f32 Llama, card vs CPU")
+    cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
+    on_card = LlamaForCausalLM(cfg, seed=SEED)
+    on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
+    on_cpu.load_state_dict(on_card.state_dict())
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+    losses = {}
+    for name, model in (("card", on_card), ("cpu", on_cpu)):
+        dev = next(model.parameters()).device
+        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                    weight_decay=0.01)
+        losses[name] = []
+        for _ in range(3):
+            loss = model.compute_loss(model(ids.to(dev)), labels.to(dev))
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses[name].append(loss.item())
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["card"], losses["cpu"]))
+    cpu_params = dict(on_cpu.named_parameters())
+    param_rel = max(((p.detach().cpu() - cpu_params[n].detach()).norm()
+                     / cpu_params[n].detach().norm()).item()
+                    for n, p in on_card.named_parameters())
+    log(f"  losses card {losses['card']} cpu {losses['cpu']}; max relative "
+        f"loss difference {loss_rel:.3e} (tol {PARITY_LOSS_RTOL}), max "
+        f"parameter relative L2 difference {param_rel:.3e} (tol "
+        f"{PARITY_PARAM_RTOL})")
+    if not loss_rel <= PARITY_LOSS_RTOL:
+        raise AssertionError(f"losses differ: {losses}")
+    if not param_rel <= PARITY_PARAM_RTOL:
+        raise AssertionError(f"parameters differ by {param_rel:.3e}")
+    if not losses["card"][-1] < losses["card"][0]:
+        raise AssertionError(f"tiny model loss did not fall: {losses}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -393,7 +746,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/4] device")
+    log("[1/6] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -404,7 +757,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/4] build")
+    log("[2/6] build")
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -414,11 +767,16 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
 
-    row = phase_kernel(card, bw)
+    log("[3/6] kernel vs plain version")
+    rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw)
     launches = phase_serve(card)
-    row["launches"] = launches[row["name"]]
+    launches.update({n: v for n, v in phase_train(
+        card, PEAK_OPS[torch.bfloat16]).items() if n.startswith("flash_")})
+    phase_train_parity()
+    for row in rows:
+        row["launches"] = launches[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    log(json.dumps({"kernels": [row]}))
+    log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                            "count": count}}))
     return 0

@@ -2,14 +2,20 @@
 
 The package mirrors ``paddle_tpu``'s module paths, so every file here has
 exactly one counterpart there; ``paddle_tpu`` stays the reference the tests
-hold this package to.  This slice covers Llama serving:
+hold this package to.  It covers Llama serving and eager Llama training:
 
   flags.py           — the serving flags (same names and defaults)
   core/place.py      — device resolution (CUDA unless the caller asks for
                        the CPU)
-  nn/                — silu, rms_norm, linear, embedding; Linear, Embedding,
-                       RMSNorm with Paddle's (in, out) weight layout
-  models/llama.py    — Llama with the paged-KV serving forward
+  nn/                — silu, rms_norm, linear, embedding, attention
+                       (flash_sdpa over the flash kernels; plain sdpa for
+                       masks and dropout), cross_entropy; Linear,
+                       Embedding, RMSNorm with Paddle's (in, out) weight
+                       layout; gradient clips
+  models/llama.py    — Llama with the paged-KV serving forward and the
+                       full-sequence training forward, compute_loss
+  optimizer/         — SGD, Adam, AdamW (in-place updates), LR schedulers
+  regularizer.py     — L1Decay, L2Decay
   ops/cuda/          — hand-written Hopper kernels (ctypes-bound, built with
                        nvcc at first use) and their plain PyTorch versions
   serving/           — paged KV allocator + prefix cache, continuous-batching

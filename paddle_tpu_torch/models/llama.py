@@ -6,7 +6,12 @@ weights, so parameter names and shapes match the reference's
 ``named_parameters()`` 1:1 (``load_reference_arrays`` carries weights
 across).  Two attention paths: the serving path (RoPE at explicit absolute
 positions, K/V written into the paged pool, attention through the block
-tables) and a plain full-sequence causal path for whole-sequence forwards.
+tables) and the full-sequence causal path of training and whole-sequence
+forwards, through ``F.scaled_dot_product_attention`` and so the flash
+kernels.  Training is eager: ``loss = model.compute_loss(model(ids),
+labels)``, ``loss.backward()``, then the optimizer (``optimizer/``).
+Gradients through ``rope_at`` come from autograd (the reference writes
+``_rope_vjp`` by hand; the tests hold the two to each other).
 
 RoPE rotates INTERLEAVED pairs ``(x[..., 0::2], x[..., 1::2])``, exactly as
 the reference's ``_rope_fwd``/``_rope_at_fwd`` do.
@@ -14,7 +19,6 @@ the reference's ``_rope_fwd``/``_rope_at_fwd`` do.
 
 from __future__ import annotations
 
-import math
 from dataclasses import dataclass
 from typing import Dict, List
 
@@ -86,22 +90,6 @@ def rope_at(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
     return torch.stack([r1, r2], dim=-1).reshape(xf.shape).to(x.dtype)
 
 
-def _causal_attention(q, k, v, scale: float) -> torch.Tensor:
-    """Plain causal attention, (B, S, H, D) in and out: scores in q's dtype
-    then f32 softmax, probs back in q's dtype for the PV product (the
-    reference's ``sdpa`` math path)."""
-    h, hkv = q.shape[2], k.shape[2]
-    if hkv != h:
-        k = k.repeat_interleave(h // hkv, dim=2)
-        v = v.repeat_interleave(h // hkv, dim=2)
-    logits = (torch.einsum("bqhd,bkhd->bhqk", q, k) * scale).float()
-    sq = q.shape[1]
-    causal = torch.ones(sq, sq, dtype=torch.bool, device=q.device).tril()
-    logits = logits.masked_fill(~causal, float("-inf"))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
-
-
 class LlamaAttention(nn.Module):
     def __init__(self, config: LlamaConfig, device, generator) -> None:
         super().__init__()
@@ -139,7 +127,10 @@ class LlamaAttention(nn.Module):
             cache.update(k, v)
             out = cache.attend(q)
         else:
-            out = _causal_attention(q, k, v, 1.0 / math.sqrt(self.head_dim))
+            # full sequence (training and whole-sequence forwards): the
+            # flash kernels, forward and backward
+            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                 training=self.training)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
@@ -227,6 +218,14 @@ class LlamaForCausalLM(nn.Module):
         if self.lm_head is None:
             return F.linear(hidden, self.llama.embed_tokens.weight.t())
         return self.lm_head(hidden)
+
+    def compute_loss(self, logits: torch.Tensor, labels: torch.Tensor
+                     ) -> torch.Tensor:
+        """Causal LM loss (shift inside the caller): f32 softmax cross
+        entropy over the flattened logits, mean over labels that are not
+        -100."""
+        return F.cross_entropy(
+            logits.float().reshape(-1, logits.shape[-1]), labels.reshape(-1))
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())

@@ -4,3 +4,7 @@ and their plain PyTorch versions.  Kernels build at their first launch."""
 from .attention import (  # noqa: F401
     LAUNCH_COUNTS, ragged_paged_attention_decode,
     ragged_paged_attention_decode_ref, reset_launch_counts)
+from .flash_attention import (  # noqa: F401
+    flash_attention_bwd, flash_attention_bwd_ref, flash_attention_dkv,
+    flash_attention_dkv_ref, flash_attention_dq, flash_attention_dq_ref,
+    flash_attention_fwd, flash_attention_fwd_ref)

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and compiles with nvcc
-into its own shared library, loaded with ``ctypes``:
+(with the shared ``csrc/*.cuh`` headers) into its own shared library,
+loaded with ``ctypes``:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared \\
          -Xcompiler -fPIC -o build/kernels/lib<name>-<hash>.so csrc/<name>.cu
@@ -66,7 +67,9 @@ def _target(name: str) -> Path:
     src = _CSRC / f"{name}.cu"
     if not src.exists():
         raise ValueError(f"no kernel source {src}")
-    digest = hashlib.sha256(src.read_bytes()
+    # the shared headers are part of every source's hash
+    headers = b"".join(h.read_bytes() for h in sorted(_CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(_NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
 

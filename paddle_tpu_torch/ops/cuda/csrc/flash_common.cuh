@@ -1,0 +1,324 @@
+// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
+// for Hopper (sm_90a).
+//
+// Two families of kernels share these helpers:
+// - bf16/fp16 inputs (the training path): register-resident tiles on the
+//   tensor cores through `mma.sync.m16n8k16` (16-bit operands, f32
+//   accumulation).  Each warp owns 16 rows of its block's tile; scores,
+//   probabilities and accumulators live in the warp's registers, in the
+//   documented fragment layouts of the PTX ISA, and probabilities pass
+//   from the score accumulators to the next product's operand without
+//   leaving registers.  Only the operand tiles (Q, K, V, dO, and O for
+//   the backward's delta) are staged in shared memory.
+// - float32 inputs: the same algorithm with plain f32 FMA out of shared
+//   memory (`block_mm_f32`), for exact agreement with the plain version
+//   (no TF32).
+// Scores and accumulators stay in f32; probabilities and dS are rounded to
+// the input type only as operands of the next product, as the TPU kernels
+// do.  No library kernel runs inside: the products are the kernels' own.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash {
+
+constexpr float kBigNeg = -1e30f;  // finite: masked scores, never -inf
+
+// float32 kernels: eight warps, 32-row tiles (their f32 tiles must fit one
+// block's shared memory).  16-bit kernels: warps of 16 rows, 64-row tiles
+// (the forward and dk/dv kernels put eight warps on 128 rows).
+constexpr int kF32Threads = 256;
+constexpr int kF32Tile = 32;
+constexpr int kMmaThreads = 128;
+constexpr int kMmaTile = 64;
+
+// Shared-memory rows are padded by 16 bytes: rows stay 16-byte aligned for
+// the tile loads, and the eight rows a warp's fragment load touches start
+// in different banks.
+template <typename T> __host__ __device__ constexpr int pad() {
+  return 16 / int(sizeof(T));
+}
+
+__host__ __device__ inline size_t round128(size_t n) {
+  return (n + 127) & ~size_t(127);
+}
+
+// Carves 128-byte-aligned regions off the dynamic shared memory, in order.
+struct Carver {
+  unsigned char* p;
+  template <typename U> __device__ U* take(size_t n) {
+    U* r = reinterpret_cast<U*>(p);
+    p += round128(n * sizeof(U));
+    return r;
+  }
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Strides (in elements) of one (B, H, S, D) operand; D is contiguous.
+struct Strides {
+  long long b, h, s;
+};
+
+// Start staging rows [row0, row0 + R) of a (S, D) slice (row stride `ss`)
+// into dst (row stride `ld`): one asynchronous 16-byte copy a thread and
+// chunk (cp.async), all in flight together; rows at or past `rows` are
+// zero-filled.  The wrapper guarantees 16-byte alignment of every row.
+// Call `await_tiles()` and then __syncthreads() before reading dst.
+template <int NT, typename T>
+__device__ void load_tile(T* dst, int ld, const T* src, long long ss,
+                          int row0, int rows, int R, int d) {
+  constexpr int vec = 16 / int(sizeof(T));
+  const int per_row = d / vec;
+  for (int i = threadIdx.x; i < R * per_row; i += NT) {
+    const int r = i / per_row, c = (i % per_row) * vec;
+    const bool ok = row0 + r < rows;
+    const T* from = ok ? src + (row0 + r) * ss + c : src;
+    const unsigned to =
+        static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ld + c));
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(to),
+                 "l"(from), "r"(ok ? 16 : 0));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait for this thread's outstanding load_tile copies.
+__device__ __forceinline__ void await_tiles() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// C (M x N, f32, row stride ldc) = [C +] A (M x K) * B (K x N), all three
+// f32 in shared memory, computed by the whole block of kF32Threads.  A is
+// stored row-major (ld lda) or, with TA, transposed as a K x M array; B is
+// stored row-major K x N or, with TB, transposed as an N x K array.  Each
+// thread owns the same output elements in every call with the same M, N.
+template <bool TA, bool TB, bool ACC>
+__device__ void block_mm_f32(float* C, int ldc, const float* A, int lda,
+                             const float* B, int ldb, int M, int N, int K) {
+  for (int idx = threadIdx.x; idx < M * N; idx += kF32Threads) {
+    const int m = idx / N, n = idx % N;
+    float s = ACC ? C[m * ldc + n] : 0.f;
+    for (int k = 0; k < K; ++k) {
+      const float a = TA ? A[k * lda + m] : A[m * lda + k];
+      const float b = TB ? B[n * ldb + k] : B[k * ldb + n];
+      s = fmaf(a, b, s);
+    }
+    C[m * ldc + n] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// mma.sync m16n8k16 (16-bit operands, f32 accumulators) and its fragments.
+// In a warp, lane = 4 * g + t.  A (16 x 16, row-major) is 4 registers of
+// two elements: (g, 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..).
+// B (16 x 8, "col") is 2 registers: (k = 2t..2t+1, n = g), (k = 2t+8..,
+// n = g).  C (16 x 8, f32) is 4 floats: (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1).  The lower 16 bits of a register hold the lower index.
+// ---------------------------------------------------------------------------
+
+template <typename T> struct Pair;
+template <> struct Pair<__half> {
+  using type = __half2;
+  static __device__ __forceinline__ type make(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
+template <> struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type make(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+
+// two f32 values rounded to T, packed lo | hi << 16
+template <typename T>
+__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
+  typename Pair<T>::type v = Pair<T>::make(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// c += a * b
+template <typename T>
+__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
+                                         const uint32_t* b);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(float* c,
+                                                        const uint32_t* a,
+                                                        const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(float* c, const uint32_t* a,
+                                                 const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix: four 8 x 8 16-bit matrices, lane l giving the address of row
+// l % 8 of matrix l / 8; register i of lane 4g + t then holds row g,
+// columns 2t..2t+1 of matrix i (of its transpose with .trans).  Rows are
+// 16-byte aligned (the padded tiles' rows are).
+template <typename T>
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const T* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+template <typename T>
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const T* row) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// A fragment of rows [m0, m0+16) x cols [k0, k0+16) of a row-major tile X
+// (row stride ld) in shared memory.
+template <typename T>
+__device__ __forceinline__ void frag_a(uint32_t* a, const T* X, int ld,
+                                       int m0, int k0, int lane) {
+  const int mi = lane >> 3;
+  const int row = m0 + (lane & 7) + 8 * (mi & 1);
+  ldmatrix_x4(a, X + row * ld + k0 + 8 * (mi >> 1));
+}
+
+// B fragments (k0.., n-tiles n0 and n0 + 8) of B = Y^T, Y row-major with n
+// as its row (Y[n][k], e.g. K in Q K^T): b[0..1] for n0, b[2..3] for
+// n0 + 8.
+template <typename T>
+__device__ __forceinline__ void frag_b_nk(uint32_t* b, const T* Y, int ld,
+                                          int n0, int k0, int lane) {
+  const int mi = lane >> 3;
+  const int row = n0 + (lane & 7) + 8 * (mi >> 1);
+  ldmatrix_x4(b, Y + row * ld + k0 + 8 * (mi & 1));
+}
+
+// B fragments (k0.., n-tiles n0 and n0 + 8) of B = Z, Z row-major with k
+// as its row (Z[k][n], e.g. V in P V): b[0..1] for n0, b[2..3] for n0 + 8.
+template <typename T>
+__device__ __forceinline__ void frag_b_kn(uint32_t* b, const T* Z, int ld,
+                                          int k0, int n0, int lane) {
+  const int mi = lane >> 3;
+  const int row = k0 + (lane & 7) + 8 * (mi & 1);
+  ldmatrix_x4_trans(b, Z + row * ld + n0 + 8 * (mi >> 1));
+}
+
+// The A fragment of k-step kk of a 16-bit copy of score accumulators
+// s[n-tile][4] (the 16 x 16 block of n-tiles 2kk, 2kk+1): no data moves
+// between lanes.
+template <typename T>
+__device__ __forceinline__ void frag_a_from_acc(uint32_t* a,
+                                                const float (*s)[4], int kk) {
+  a[0] = pack_f32<T>(s[2 * kk][0], s[2 * kk][1]);
+  a[1] = pack_f32<T>(s[2 * kk][2], s[2 * kk][3]);
+  a[2] = pack_f32<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  a[3] = pack_f32<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// 2^x (MUFU.EX2; relative error about 2^-22, far below the 16-bit
+// operands' rounding).  The 16-bit kernels keep scores in log2 units, so
+// exp(scale * s - m) is one FMA and one ex2.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Does the tile [q0, q0 + BQ) x [k0, k0 + BK) lie wholly inside the
+// attention pattern (no ragged edge, not on the causal diagonal)?  Such
+// tiles skip the per-element mask.
+__device__ __forceinline__ bool tile_visible(int q0, int k0, int BQ, int BK,
+                                             int sq, int sk, int causal) {
+  return q0 + BQ <= sq && k0 + BK <= sk && (!causal || k0 + BK - 1 <= q0);
+}
+
+// Is score (query qi, key kj) inside the attention pattern?
+__device__ __forceinline__ bool visible(int qi, int kj, int sq, int sk,
+                                        int causal) {
+  return qi < sq && kj < sk && (!causal || kj <= qi);
+}
+
+// lse and delta = rowsum(dO * O) (f32) for query rows [q0, q0 + R), one
+// warp per row, from the dO and O tiles in shared memory (row stride ld);
+// rows past sq get 0.
+template <int NT, typename T>
+__device__ void row_stats(float* lse_s, float* delta_s, const float* lse_g,
+                          const T* os, const T* dos, int ld, int q0, int sq,
+                          int R, int d) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < R; r += NT / 32) {
+    float acc = 0.f;
+    for (int c = lane; c < d; c += 32)
+      acc += to_f32(dos[r * ld + c]) * to_f32(os[r * ld + c]);
+    acc = warp_sum(acc);
+    if (lane == 0) {
+      delta_s[r] = acc;
+      lse_s[r] = q0 + r < sq ? lse_g[q0 + r] : 0.f;
+    }
+  }
+}
+
+// Opt a kernel in to more than 48 KB of dynamic shared memory.
+template <typename K> int allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return 0;
+  return int(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem)));
+}
+
+// Parameters of all three kernels.  Pointers a kernel does not use are
+// null, and so are their strides.
+struct Params {
+  const void *q, *k, *v, *o, *dout;
+  float* lse;  // written by the forward, read by the backward
+  void *out, *dq, *dk, *dv;
+  Strides q_st, k_st, v_st, o_st, do_st, dq_st, dk_st, dv_st;
+  int heads, rep, sq, sk, d, causal;
+  float scale;
+};
+
+// strides: 24 int64, (b, h, s) of q, k, v, o, do, dq, dk, dv in that order
+// (o is the forward's output).
+inline void set_strides(Params& p, const long long* st) {
+  Strides* dst[8] = {&p.q_st, &p.k_st, &p.v_st, &p.o_st,
+                     &p.do_st, &p.dq_st, &p.dk_st, &p.dv_st};
+  for (int i = 0; i < 8; ++i)
+    *dst[i] = Strides{st[3 * i], st[3 * i + 1], st[3 * i + 2]};
+}
+
+}  // namespace flash

@@ -1,0 +1,192 @@
+"""Optimizer base and SGD, Adam, AdamW (counterpart of
+``paddle_tpu/optimizer/optimizer.py``).
+
+The reference runs one jitted update over the parameter list and gets new
+arrays back; here the update is written with torch ops on the parameter
+list and applied IN PLACE to the parameters and their moments.  In-place
+is where the port saves the memory that JAX saves by donating buffers:
+no second copy of the parameters or the moments exists during a step.
+The arithmetic follows the reference's order (decoupled decay on the
+parameter before the moment update, bias correction from the step
+count).  ``torch.optim`` is not used.
+"""
+
+from __future__ import annotations
+
+from collections import defaultdict
+from typing import Dict, List
+
+import torch
+
+from ..regularizer import L2Decay
+from .lr import LRScheduler
+
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+
+
+class Optimizer:
+    _STATE_NAMES: List[str] = []  # per-parameter accumulator names
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 multi_precision=False) -> None:
+        if parameters is None:
+            raise ValueError("parameters must be given (pass "
+                             "model.parameters())")
+        if isinstance(parameters, dict):
+            raise TypeError("parameters cannot be a dict")
+        items = list(parameters)
+        if any(isinstance(item, dict) for item in items):
+            raise TypeError("parameter groups are not ported yet; pass the "
+                            "parameters (or (name, parameter) pairs)")
+        # torch parameters carry no name: (name, parameter) pairs, as
+        # model.named_parameters() gives them, name them for
+        # apply_decay_param_fun; a bare parameter's name is ""
+        self._param_names: Dict[int, str] = {}
+        self._parameter_list = []
+        for item in items:
+            if isinstance(item, tuple):
+                name, item = item
+                self._param_names[id(item)] = name
+            self._parameter_list.append(item)
+        self._learning_rate = learning_rate
+        self._grad_clip = grad_clip
+        self._multi_precision = multi_precision
+        if isinstance(weight_decay, float):
+            self._weight_decay = L2Decay(weight_decay)
+        else:
+            self._weight_decay = weight_decay
+        self._accumulators: Dict[str, Dict[int, torch.Tensor]] = \
+            defaultdict(dict)
+        self._global_step = 0
+
+    # -- lr ------------------------------------------------------------------
+    def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate())
+        return float(self._learning_rate)
+
+    # -- accumulators -----------------------------------------------------
+    def _get_state(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        d = self._accumulators[name]
+        s = d.get(id(p))
+        if s is None:
+            s = self._init_state(name, p)
+            d[id(p)] = s
+        return s
+
+    def _init_state(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        dtype = torch.float32 if self._multi_precision else p.dtype
+        return torch.zeros(p.shape, dtype=dtype, device=p.device)
+
+    # -- the update ---------------------------------------------------------
+    def _params_with_grad(self) -> List[torch.Tensor]:
+        return [p for p in self._parameter_list
+                if p.requires_grad and p.grad is not None]
+
+    def _update(self, lr: float, params, grads, states, step: int) -> None:
+        """Update ``params`` and ``states`` in place.  Override."""
+        raise NotImplementedError
+
+    def _decoupled_wd(self) -> bool:
+        return False
+
+    @torch.no_grad()
+    def step(self) -> None:
+        params = self._params_with_grad()
+        if not params:
+            self._global_step += 1
+            return
+        grads = [p.grad for p in params]
+        if self._grad_clip is not None:
+            grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
+        # L2/L1 regularization folded into the grads
+        if self._weight_decay is not None and not self._decoupled_wd():
+            grads = [self._weight_decay.apply_tensor(p, g)
+                     for p, g in zip(params, grads)]
+        states = [[self._get_state(n, p) for p in params]
+                  for n in self._STATE_NAMES]
+        self._global_step += 1
+        self._update(self.get_lr(), params, grads, states, self._global_step)
+
+    def clear_grad(self, set_to_zero: bool = False) -> None:
+        """Drop every gradient.  ``set_to_zero`` is accepted for the API and,
+        as in the reference, changes nothing: the next backward writes
+        fresh gradients either way."""
+        for p in self._parameter_list:
+            p.grad = None
+
+
+class SGD(Optimizer):
+    _STATE_NAMES: List[str] = []
+
+    def _update(self, lr, params, grads, states, step):
+        for p, g in zip(params, grads):
+            p.sub_(lr * g.to(p.dtype))
+
+
+class Adam(Optimizer):
+    _STATE_NAMES = ["moment1", "moment2"]
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, amsgrad=False, name=None) -> None:
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._beta1 = float(beta1)
+        self._beta2 = float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _adam(self, lr, p, g, m1, m2, step) -> None:
+        """m1 <- b1 m1 + (1 - b1) g;  m2 <- b2 m2 + (1 - b2) g^2;
+        p <- p - lr (m1 / bc1) / (sqrt(m2 / bc2) + eps), in place, with g
+        in the moments' dtype and the update cast to p's."""
+        b1, b2, eps = self._beta1, self._beta2, self._epsilon
+        bc1 = 1.0 - b1 ** step
+        bc2 = 1.0 - b2 ** step
+        gf = g.to(m1.dtype)
+        m1.mul_(b1).add_(gf, alpha=1 - b1)
+        m2.mul_(b2).add_((1 - b2) * gf * gf)
+        upd = lr * (m1 / bc1) / (torch.sqrt(m2 / bc2) + eps)
+        p.sub_(upd.to(p.dtype))
+
+    def _update(self, lr, params, grads, states, step):
+        m1s, m2s = states
+        for p, g, m1, m2 in zip(params, grads, m1s, m2s):
+            self._adam(lr, p, g, m1, m2, step)
+
+
+class AdamW(Adam):
+    """Decoupled weight decay: the parameter is multiplied by
+    ``1 - lr * coeff`` BEFORE the Adam update (the reference's fused-path
+    semantics), where ``apply_decay_param_fun(name)`` says so (every
+    parameter without it).  Names come with ``(name, parameter)`` pairs
+    (``parameters=model.named_parameters()``); a bare parameter's is "".
+    ``lr_ratio`` is accepted and, as in the reference, not applied."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None) -> None:
+        Optimizer.__init__(self, learning_rate, parameters, None, grad_clip,
+                           name, multi_precision)
+        self._beta1 = float(beta1)
+        self._beta2 = float(beta2)
+        self._epsilon = float(epsilon)
+        self._coeff = float(weight_decay)
+        self._apply_decay_param_fun = apply_decay_param_fun
+        self._lr_ratio = lr_ratio
+
+    def _decoupled_wd(self) -> bool:
+        return True
+
+    def _update(self, lr, params, grads, states, step):
+        m1s, m2s = states
+        fun = self._apply_decay_param_fun
+        for p, g, m1, m2 in zip(params, grads, m1s, m2s):
+            decay = fun is None or bool(fun(self._param_names.get(id(p),
+                                                                  "")))
+            if decay and self._coeff != 0.0:
+                p.mul_(1.0 - lr * self._coeff)
+            self._adam(lr, p, g, m1, m2, step)

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.attention import (
     LAUNCH_COUNTS, ragged_paged_attention_decode,
     ragged_paged_attention_decode_ref)
@@ -81,3 +83,85 @@ def test_rpa_decode_kernel_refuses_what_it_cannot_take(cuda_device):
     assert strided.shape == k.shape and not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         ragged_paged_attention_decode(q, strided, strided, bt, sl)
+
+
+# flash kernels vs plain versions: f32 elementwise (summation order only);
+# 16-bit relative L2 over the tensor (probability tiles round against a
+# running max in the kernel, the final max in the plain version), plus an
+# RMS floor of 1e-5 for gradients that vanish (S=1: dq = dk = 0)
+FLASH_REL = {torch.float16: 2e-3, torch.bfloat16: 1e-2}
+
+
+def flash_inputs(device, dtype, b, h, hkv, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = [(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d)]
+    return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+            .to(device=device, dtype=dtype) for sh in shapes]
+
+
+def flash_close(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        diff = (got.float() - want.float()).norm().item()
+        bound = FLASH_REL[dtype] * want.float().norm().item() + \
+            1e-5 * math.sqrt(want.numel())
+        assert diff <= bound, (diff, bound)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal", [
+    (torch.bfloat16, 1, 8, 8, 1024, 128, True),
+    (torch.bfloat16, 2, 8, 2, 1000, 128, True),
+    (torch.float16, 2, 4, 4, 1, 64, True),
+    (torch.bfloat16, 1, 4, 2, 333, 64, False),
+    (torch.float32, 2, 4, 2, 200, 64, True),
+    (torch.float32, 1, 4, 4, 130, 16, False),
+], ids=["bf16_mha", "bf16_gqa_ragged", "f16_s1", "bf16_full_d64",
+        "f32_gqa", "f32_full_d16"])
+def test_flash_kernels_match_plain_versions(cuda_device, dtype, b, h, hkv,
+                                            s, d, causal):
+    q, k, v, do = flash_inputs(cuda_device, dtype, b, h, hkv, s, d)
+    before = dict(LAUNCH_COUNTS)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal)
+    dq = fa.flash_attention_dq(q, k, v, ro, rl, do, causal)
+    dk, dv = fa.flash_attention_dkv(q, k, v, ro, rl, do, causal)
+    torch.cuda.synchronize()
+    assert {n: LAUNCH_COUNTS[n] - before[n] for n in
+            ("flash_fwd", "flash_dq", "flash_dkv")} == \
+        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    flash_close(out, ro, dtype)
+    torch.testing.assert_close(lse, rl, atol=1e-5, rtol=1e-5)
+    flash_close(dq, fa.flash_attention_dq_ref(q, k, v, ro, rl, do, causal),
+                dtype)
+    rk, rv = fa.flash_attention_dkv_ref(q, k, v, ro, rl, do, causal)
+    flash_close(dk, rk, dtype)
+    flash_close(dv, rv, dtype)
+    assert dk.shape == k.shape and dv.shape == v.shape
+
+
+@pytest.mark.gpu
+def test_sdpa_on_the_card_always_launches_the_flash_kernels(cuda_device):
+    """No seq gate: a 16-token causal attention and its backward go
+    through the kernels, never through the plain path."""
+    q, k, v, do = (x.transpose(1, 2).contiguous().requires_grad_()
+                   for x in flash_inputs(cuda_device, torch.bfloat16, 2, 4,
+                                         2, 16, 64))
+    before = dict(LAUNCH_COUNTS)
+    out = scaled_dot_product_attention(q, k, v, is_causal=True)
+    out.backward(do.detach())
+    torch.cuda.synchronize()
+    assert {n: LAUNCH_COUNTS[n] - before[n] for n in
+            ("flash_fwd", "flash_dq", "flash_dkv")} == \
+        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert k.grad.shape == k.shape
+
+
+@pytest.mark.gpu
+def test_flash_kernels_refuse_what_they_cannot_take(cuda_device):
+    q, k, v, _ = flash_inputs(cuda_device, torch.float32, 1, 4, 2, 16, 64)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention_fwd(q, k.cpu(), v, True)
+    with pytest.raises(ValueError, match="Sq == Sk"):
+        fa.flash_attention_fwd(q, k[:, :, :8], v[:, :, :8], True)

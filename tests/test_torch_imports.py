@@ -60,11 +60,17 @@ def test_importing_the_port_loads_no_jax():
         "import sys\n"
         "before = set(sys.modules)\n"
         "import paddle_tpu_torch, paddle_tpu_torch.models.llama, "
-        "paddle_tpu_torch.serving, paddle_tpu_torch.ops.cuda\n"
+        "paddle_tpu_torch.serving, paddle_tpu_torch.ops.cuda, "
+        "paddle_tpu_torch.ops.cuda.flash_attention, "
+        "paddle_tpu_torch.nn.functional.attention, "
+        "paddle_tpu_torch.nn.functional.loss, paddle_tpu_torch.nn.clip, "
+        "paddle_tpu_torch.optimizer, paddle_tpu_torch.optimizer.lr, "
+        "paddle_tpu_torch.regularizer\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
         "assert 'paddle_tpu_torch.serving.engine' in new\n"
+        "assert 'paddle_tpu_torch.optimizer.optimizer' in new\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
