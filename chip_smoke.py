@@ -17,8 +17,7 @@ and prints no result line):
    bf16) behind ``ServingEngine``: 10 greedy requests, launch counts read
    around the run, first-decode-step logits held against an engine on the
    plain gather path, and a tiny f32 model's tokens held against a
-   full-recompute greedy reference; a torch.profiler breakdown of
-   batch-8 decode steps says where a step's time goes;
+   full-recompute greedy reference;
 5. train  — Llama-7B width (hidden 4096, intermediate 11008, 32 heads,
    seq 4096, bf16; the layer count by bench.py's memory rule) trained
    eagerly with AdamW, bench_llama's optimizer and data: one warm-up and
@@ -26,7 +25,17 @@ and prints no result line):
    finite and falling;
 6. train parity — a tiny f32 Llama takes three AdamW steps on the card
    (through the kernels) and on the CPU (through their plain versions)
-   in this process; losses and parameters must agree.
+   in this process; losses and parameters must agree;
+7. quantized serve — Llama-7B at full width and depth quantized on the
+   card by ``quantize_for_inference``: (a) int8 weights with the int8 KV
+   pool, (b) int4 weights with the bf16 pool, each serving phase 4's
+   traffic with launch counts read around the run, the report's SNR
+   checked, and first-decode-step logits held against the same quantized
+   model on the plain paths (and printed against the bf16 model's); then
+   a tiny f32 Llama with int8 weights and int8 KV on the card vs the CPU;
+8. profiles — torch.profiler breakdowns of batch-8 decode steps (bf16;
+   int8 weights and KV) and of one train step, after every timed phase,
+   since a profiler run slows the host side of later work.
 
 The second-to-last stdout line is ``{"kernels": [...]}``; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -79,6 +88,21 @@ PEAK_BW = (("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H200", 4.8e12),
            ("H100", 3.35e12))
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float16: 989e12,
             torch.float32: 67e12}
+# Quantized matmul kernels vs plain version (same x, codes and scales, both
+# with f32 products and sums, in another order): float32 outputs within
+# ||kernel - plain|| <= 1e-5 ||plain||; float16/bfloat16 outputs are
+# rounded once from f32 (at most half an ulp, 2^-9 relative in bf16), so
+# 4e-3 ||plain||.
+QMM_REL_TOL = {torch.float32: 1e-5, torch.float16: 4e-3,
+               torch.bfloat16: 4e-3}
+# Llama-7B's Linear shapes (K, N) with their launches a step: q/k/v/o 4 x
+# 32 layers, gate/up 2 x 32, down 32, and the lm_head once (last rows only)
+LLAMA7B_LINEARS = {(4096, 4096): 128, (4096, 11008): 64, (11008, 4096): 32,
+                   (4096, 32000): 1}
+QMM_LAUNCHES_A_STEP = sum(LLAMA7B_LINEARS.values())          # 225
+# Tiny f32 model with int8 weights and KV, card vs CPU: first-decode logits
+# within 1e-4 relative L2 (f32 on both sides, sums in another order)
+QUANT_PARITY_RTOL = 1e-4
 
 
 def log(msg: str = "") -> None:
@@ -102,8 +126,10 @@ def peak_bw(name: str):
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Median device time of one call: CUDA events around each call, a
-    96 MB write between calls so every call finds the 50 MB L2 cold."""
-    flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
+    384 MB write between calls so every call finds the 50 MB L2 cold.  The
+    write keeps the card busy for about 0.1 ms, longer than a wrapper takes
+    to enqueue its launches, so the host's time is not counted."""
+    flush = torch.empty(384 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
@@ -398,6 +424,198 @@ def phase_flash_kernels(card, bw):
             for n in ms]
 
 
+def qmm_bound_ms(m, k, n, bits, groups, x_el, bw):
+    """Least time of one quantized product: x, the K contracted code rows,
+    the scales and the output moved once, or its 2*M*K*N multiply-adds at
+    the bf16 dense rate; and (second) the f32-FMA ceiling of the same work,
+    the rate the kernels' f32 arithmetic can reach at most."""
+    nbytes = m * k * x_el + k * n * bits // 8 + groups * n * 4 + m * n * x_el
+    t_bytes = nbytes / bw * 1e3
+    t_ops = 2 * m * k * n / PEAK_OPS[torch.bfloat16] * 1e3
+    bound = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return bound, 2 * m * k * n / PEAK_OPS[torch.float32] * 1e3
+
+
+def qmm_case(label, m, k, n, bits, group, dtype, seed, quiet=False):
+    """The quantized matmul kernel against its plain version on one shape
+    (weights N(0, 0.02), quantized on the card); returns the inputs and the
+    max abs error."""
+    from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul,
+                                                        quant_matmul_ref)
+    from paddle_tpu_torch.quantize.core import quantize_weight
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    w = torch.randn(k, n, generator=g, device="cuda") * 0.02
+    x = torch.randn(m, k, generator=g, device="cuda").to(dtype)
+    qw, s, grp = quantize_weight(w, bits=bits, group=group)
+    del w
+    got = quant_matmul(x, qw, s, bits=bits, group=grp)
+    want = quant_matmul_ref(x, qw, s, bits=bits, group=grp)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float())
+    rel = (diff.norm() / want.float().norm()).item()
+    err = diff.abs().max().item()
+    if not quiet:
+        log(f"  {label}: int{bits} M={m} K={k} N={n} group={grp} "
+            f"{str(dtype).replace('torch.', '')}: rel L2 {rel:.2e} (tol "
+            f"{QMM_REL_TOL[dtype]:g}), max abs err {err:.3e}")
+    if not torch.isfinite(got).all() or rel > QMM_REL_TOL[dtype]:
+        raise AssertionError(f"{label}: quantized matmul kernel disagrees "
+                             f"with its plain version: rel L2 {rel:.3e}")
+    return (x, qw, s, grp), err
+
+
+def rpa_quant_case(label, batch, heads, kv_heads, d, page, max_pages,
+                   num_pages, lens, dtype, seed):
+    """The decode kernel over int8 pools (codes and scales from
+    quantize_kv_rows of random rows; page 0 full of garbage codes and
+    scales) against its plain version."""
+    from paddle_tpu_torch.ops.cuda.attention import (
+        ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
+    from paddle_tpu_torch.quantize.core import quantize_kv_rows
+    q, k, v, bt, sl = rpa_inputs(batch, heads, kv_heads, d, page, max_pages,
+                                 num_pages, lens, torch.float32, seed)
+    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    del k, v
+    kq[0], vq[0], ks[0], vs[0] = 127, -127, 300.0, 300.0
+    q = q.to(dtype)
+    got = ragged_paged_attention_decode(q, kq, vq, bt, sl, k_scales=ks,
+                                        v_scales=vs)
+    want = ragged_paged_attention_decode_ref(q, kq, vq, bt, sl, None, ks, vs)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    atol, rtol = TOL[dtype]
+    bad = err > atol + rtol * want.float().abs()
+    log(f"  {label}: B={batch} H={heads} Hkv={kv_heads} D={d} page={page} "
+        f"{str(dtype).replace('torch.', '')} int8 pools lens={list(lens)} "
+        f"max_abs_err={err.max().item():.3e} (atol {atol:g}, rtol {rtol:g})")
+    if bool(bad.any()) or not torch.isfinite(got).all():
+        raise AssertionError(f"{label}: kernel disagrees with its plain "
+                             f"version on {int(bad.sum())} elements")
+    zero_rows = [i for i, n in enumerate(lens) if n == 0]
+    if zero_rows and bool(got[zero_rows].ne(0).any()):
+        raise AssertionError(f"{label}: inert rows (len 0) are not zero")
+    return (q, kq, vq, bt, sl, ks, vs), err.max().item()
+
+
+def phase_quant_kernels(card, bw):
+    """qmm_i8, qmm_i4 and rpa_decode_quant against their plain versions at
+    the quantized serve's shapes and at edge cases, with times."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.ops.cuda.attention import (
+        ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
+    from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul,
+                                                        quant_matmul_ref)
+    from paddle_tpu_torch.quantize.core import dequantize_weight
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    rows = []
+    for bits in (8, 4):
+        name = f"qmm_i{bits}"
+        errs = []
+        # the serve's shapes: decode (M=8) and prefill-chunk (M=256) rows
+        # through every Linear, and the prefill's lm_head on one row
+        main = {}
+        shapes = [(m, k, n) for m in (8, 256) for (k, n) in LLAMA7B_LINEARS
+                  if not (m == 256 and n == 32000)] + [(1, 4096, 32000)]
+        for i, (m, k, n) in enumerate(shapes):
+            inputs, e = qmm_case(f"{name} serve shape", m, k, n, bits, 128,
+                                 bf16, SEED + 40 + i, quiet=True)
+            errs.append(e)
+            main[(m, k, n)] = inputs
+        log(f"  {name}: the {len(shapes)} serve shapes agree with the plain "
+            f"version (bf16 x, group 128), max abs err {max(errs):.3e}")
+        for i, case in enumerate([
+                ("float32 x, decode shape", 8, 4096, 4096, 128, f32),
+                ("float32 x, prefill shape", 256, 4096, 4096, 128, f32),
+                ("fp16 x, M=1", 1, 4096, 11008, 128, f16),
+                ("M=40 (tiled, ragged M)", 40, 4096, 4096, 128, bf16),
+                ("padded K, odd N", 8, 300, 77, 128, bf16),
+                ("tiled, padded K, odd N", 256, 300, 77, 64, f32),
+                ("the tiny model's group", 8, 160, 48, 8, f32),
+                ("odd group (int4 pads a group)", 3, 21, 10, 3, f32)]):
+            label, m, k, n, group, dtype = case
+            errs.append(qmm_case(label, m, k, n, bits, group, dtype,
+                                 SEED + 60 + i)[1])
+        # timings at every serve shape; the row reports the decode step's
+        # gate/up product (M=8, K=4096, N=11008)
+        per_step = 0.0
+        for (m, k, n), (x, qw, s, grp) in main.items():
+            t = time_ms(lambda: quant_matmul(x, qw, s, bits=bits, group=grp))
+            w16 = dequantize_weight(qw, s, bits, grp, k).to(bf16)
+            lib = time_ms(lambda: torch.matmul(x, w16))
+            del w16
+            (bound, by), ceil = qmm_bound_ms(m, k, n, bits, s.shape[0], 2, bw)
+            if m == 8:
+                per_step += t * LLAMA7B_LINEARS[(k, n)]
+            log(f"  [{card}] {name} M={m} K={k} N={n}: kernel {t:.4f} ms, "
+                f"bound {bound:.4f} ms ({by}; {bound / t:.1%}), f32-FMA "
+                f"ceiling {ceil:.4f} ms, library (bf16 matmul, dequantized "
+                f"weight) {lib:.4f} ms")
+        log(f"  [{card}] {name}: one decode step's 225 launches at M=8 "
+            f"take {per_step:.3f} ms of kernel time by these timings")
+        x, qw, s, grp = main[(8, 4096, 11008)]
+        ms = time_ms(lambda: quant_matmul(x, qw, s, bits=bits, group=grp))
+        plain = time_ms(lambda: quant_matmul_ref(x, qw, s, bits=bits,
+                                                 group=grp), iters=10)
+        w16 = dequantize_weight(qw, s, bits, grp, 4096).to(bf16)
+        lib = time_ms(lambda: torch.matmul(x, w16))
+        del w16, main
+        (bound, by), _ = qmm_bound_ms(8, 4096, 11008, bits, s.shape[0], 2, bw)
+        rows.append({"name": name, "route": "cuda",
+                     "source": "paddle_tpu_torch/ops/cuda/csrc/"
+                               "quant_matmul.cu",
+                     "replaces": "paddle_tpu/ops/pallas/quant_matmul.py:"
+                                 + ("84" if bits == 8 else "93"),
+                     "launches": None, "max_abs_err": max(errs), "ms": ms,
+                     "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib})
+    serve_lens = [0, 1, 16, 17, 127, 300, 640, 1024]
+    main, err = rpa_quant_case("serving shape, MHA", 8, 32, 32, 128, 16, 64,
+                               2048, serve_lens, bf16, SEED + 80)
+    errs = [err]
+    for i, case in enumerate([
+            ("GQA 32q/8kv", 8, 32, 8, 128, 16, 64, 2048, serve_lens, bf16),
+            ("float32", 8, 32, 32, 128, 16, 64, 512,
+             [0, 1, 15, 16, 33, 200, 511, 1000], f32),
+            ("edge: odd page size, D=100, fp16, GQA 12q/4kv", 5, 12, 4, 100,
+             7, 20, 200, [0, 1, 7, 8, 140], f16)]):
+        errs.append(rpa_quant_case(*case, SEED + 81 + i)[1])
+    q, kq, vq, bt, sl, ks, vs = main
+    b, h, d = q.shape
+    hkv = kq.shape[2]
+    t = bt.shape[1] * kq.shape[1]
+    ms = time_ms(lambda: ragged_paged_attention_decode(
+        q, kq, vq, bt, sl, k_scales=ks, v_scales=vs))
+    plain = time_ms(lambda: ragged_paged_attention_decode_ref(
+        q, kq, vq, bt, sl, None, ks, vs))
+    # library yardstick: SDPA over K/V already gathered and dequantized
+    # into a dense (B, H, T, D) layout with a key mask, gather not timed
+    bl = bt.long()
+    kd = (kq[bl].float() * ks[bl]).to(bf16).reshape(b, t, hkv, d)
+    vd = (vq[bl].float() * vs[bl]).to(bf16).reshape(b, t, hkv, d)
+    kd, vd = kd.transpose(1, 2).contiguous(), vd.transpose(1, 2).contiguous()
+    mask = (torch.arange(t, device="cuda")[None, :]
+            < sl.long()[:, None])[:, None, None, :]
+    lib = time_ms(lambda: tf.scaled_dot_product_attention(
+        q[:, :, None, :], kd, vd, attn_mask=mask))
+    tokens = int(sum(serve_lens))
+    nbytes = (2 * tokens * hkv * d + 2 * tokens * hkv * 4 + 2 * b * h * d * 2
+              + 4 * (b + sum(math.ceil(n / 16) for n in serve_lens)))
+    t_bytes = nbytes / bw * 1e3
+    t_ops = 4 * tokens * h * d / PEAK_OPS[bf16] * 1e3
+    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    log(f"  [{card}] rpa_decode_quant at the serving shape: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library (SDPA on pre-gathered "
+        f"dequantized dense K/V) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+    rows.append({"name": "rpa_decode_quant", "route": "cuda",
+                 "source": "paddle_tpu_torch/ops/cuda/csrc/rpa_decode.cu",
+                 "replaces": "paddle_tpu/ops/pallas/attention.py:896",
+                 "launches": None, "max_abs_err": max(errs), "ms": ms,
+                 "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+                 "library_ms": lib})
+    return rows
+
+
 # -- phase 4: serve ----------------------------------------------------------
 
 def serve_prompts(seed: int, vocab: int):
@@ -412,6 +630,14 @@ def serve_prompts(seed: int, vocab: int):
     second = prefix + fork + [diverge] + tok(30)
     return ([first] + [tok(int(rng.integers(16, 129))) for _ in range(8)]
             + [second])
+
+
+def compare_prompts(vocab: int):
+    """Four prompts of 20-128 tokens whose first decode step the serve
+    phases compare across engines."""
+    rng = np.random.default_rng(SEED + 1)
+    return [[int(x) for x in rng.integers(1, vocab, n)]
+            for n in (20, 57, 96, 128)]
 
 
 def first_decode_logits(engine, prompts, new_tokens):
@@ -473,32 +699,17 @@ def profile_decode(engine, prompts, card, steps: int = 6) -> None:
         engine.cancel(r.rid)
 
 
-def phase_serve(card):
-    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
-                                               llama_7b_config,
-                                               llama_tiny_config)
-    from paddle_tpu_torch.ops.cuda.attention import (LAUNCH_COUNTS,
-                                                     reset_launch_counts)
-    from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/6] serve Llama-7B (full width and depth, bf16, random weights)")
-    t0 = time.perf_counter()
-    cfg = llama_7b_config()
-    model = LlamaForCausalLM(cfg, seed=SEED)
-    torch.cuda.synchronize()
-    log(f"  model: {model.num_params() / 1e9:.3f} B parameters, "
-        f"{cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
-        f"intermediate {cfg.intermediate_size}, heads "
-        f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}, vocab "
-        f"{cfg.vocab_size}, built in {time.perf_counter() - t0:.1f} s")
-    kw = dict(block_size=16, max_batch=8, prefill_chunk=256,
-              max_seq_len=1024)
-    engine = ServingEngine(model, num_blocks=2048, **kw)
-    assert engine._use_kernel, "the engine on the card must use the kernel"
-    log(f"  KV pool {engine.kv.pool_bytes() / 1e9:.2f} GB "
-        f"({engine.kv.num_blocks} pages of {engine.kv.block_size})")
-    engine.warmup()
+SERVE_KW = dict(block_size=16, max_batch=8, prefill_chunk=256,
+                max_seq_len=1024)
+
+
+def serve_traffic(engine, cfg, card, new_tokens: int = 32):
+    """The serve traffic through ``engine.generate`` (warmed up first): every
+    launch count set to 0 just before and read just after; outputs, the
+    prefix hit and the copy-on-write checked; the run's numbers printed.
+    Returns (launches, engine.stats)."""
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
     prompts = serve_prompts(SEED, cfg.vocab_size)
-    new_tokens = 32
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -514,17 +725,12 @@ def phase_serve(card):
         [len(o) for o in outs]
     assert prefix["hits"] >= 1 and prefix["hit_tokens_total"] >= 64, prefix
     assert prefix["cow_copies_total"] >= 1, prefix
-    expect = stats["decode_steps"] * cfg.num_hidden_layers
-    assert launches["rpa_decode"] == expect > 0, (launches, expect)
     ttft = np.array([(r.first_token_at - r.submitted_at) * 1e3
                      for r in reqs])
     toks = sum(len(o) for o in outs)
     log(f"  served {len(outs)} requests x {new_tokens} tokens; prefix "
         f"cache: {prefix['hits']} hits, {prefix['hit_tokens_total']} hit "
         f"tokens, {prefix['cow_copies_total']} copy-on-write")
-    log(f"  rpa_decode launches {launches['rpa_decode']} = "
-        f"{stats['decode_steps']} decode steps x {cfg.num_hidden_layers} "
-        f"layers")
     log(f"  [{card}] tokens/s {toks / wall:.1f} ({toks} tokens in "
         f"{wall:.3f} s); TTFT ms mean {ttft.mean():.2f} p50 "
         f"{np.median(ttft):.2f} max {ttft.max():.2f}; decode step ms "
@@ -532,12 +738,40 @@ def phase_serve(card):
         f"prefill step ms "
         f"{stats['prefill_seconds'] / stats['prefill_steps'] * 1e3:.3f}; "
         f"peak memory {peak / 1e9:.2f} GB")
+    return launches, stats
+
+
+def phase_serve(card):
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config,
+                                               llama_tiny_config)
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    log("[4/8] serve Llama-7B (full width and depth, bf16, random weights)")
+    t0 = time.perf_counter()
+    cfg = llama_7b_config()
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"  model: {model.num_params() / 1e9:.3f} B parameters, "
+        f"{cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}, "
+        f"intermediate {cfg.intermediate_size}, heads "
+        f"{cfg.num_attention_heads}/{cfg.num_key_value_heads}, vocab "
+        f"{cfg.vocab_size}, built in {time.perf_counter() - t0:.1f} s")
+    kw = SERVE_KW
+    engine = ServingEngine(model, num_blocks=2048, **kw)
+    assert engine._use_kernel, "the engine on the card must use the kernel"
+    log(f"  KV pool {engine.kv.pool_bytes() / 1e9:.2f} GB "
+        f"({engine.kv.num_blocks} pages of {engine.kv.block_size})")
+    engine.warmup()
+    launches, stats = serve_traffic(engine, cfg, card)
+    expect = stats["decode_steps"] * cfg.num_hidden_layers
+    assert launches["rpa_decode"] == expect > 0, (launches, expect)
+    log(f"  rpa_decode launches {launches['rpa_decode']} = "
+        f"{stats['decode_steps']} decode steps x {cfg.num_hidden_layers} "
+        f"layers")
 
     # first decode step of the kernel engine vs an engine on the plain
     # gather path, same weights and prompts
-    rng = np.random.default_rng(SEED + 1)
-    cmp_prompts = [[int(x) for x in rng.integers(1, cfg.vocab_size, n)]
-                   for n in (20, 57, 96, 128)]
+    cmp_prompts = compare_prompts(cfg.vocab_size)
     plain = ServingEngine(model, num_blocks=256, use_kernel=False, **kw)
     a = first_decode_logits(engine, cmp_prompts, 4)
     b = first_decode_logits(plain, cmp_prompts, 4)
@@ -550,9 +784,7 @@ def phase_serve(card):
     assert torch.isfinite(a).all() and a.shape == (len(cmp_prompts),
                                                    cfg.vocab_size)
     assert rel <= LOGITS_REL_TOL, rel
-    del plain
-    profile_decode(engine, prompts, card)
-    del engine, model
+    del plain, engine, model
     torch.cuda.empty_cache()
 
     # tiny f32 model: the kernel engine's greedy tokens equal a
@@ -593,22 +825,24 @@ def train_layers(total_memory: int, hidden: int, inter: int,
     return max(1, min(layers, 32))
 
 
-def phase_train(card, peak_ops):
+# hidden, intermediate, heads, seq, vocab, batch of the train phase
+TRAIN_DIMS = (4096, 11008, 32, 4096, 32000, 1)
+
+
+def train_setup():
+    """bench_llama's model, optimizer and data at Llama-7B width, the depth
+    by train_layers; returns (layers, total memory, model, optimizer,
+    step)."""
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
-    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
     from paddle_tpu_torch.optimizer import AdamW
-    hidden, inter, heads, seq, vocab, batch = 4096, 11008, 32, 4096, 32000, 1
+    hidden, inter, heads, seq, vocab, batch = TRAIN_DIMS
     total = torch.cuda.get_device_properties(0).total_memory
     layers = train_layers(total, hidden, inter, vocab)
-    log(f"[5/6] train Llama-7B width, {layers} of 32 layers (bench.py's "
-        f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
-        f"bf16, eager AdamW")
     cfg = LlamaConfig(vocab_size=vocab, hidden_size=hidden,
                       intermediate_size=inter, num_hidden_layers=layers,
                       num_attention_heads=heads, num_key_value_heads=heads,
                       max_position_embeddings=seq, dtype="bfloat16")
     model = LlamaForCausalLM(cfg, seed=SEED)
-    n_params = model.num_params()
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
     # bench_llama's data: ids then labels from RandomState(0)
@@ -624,7 +858,17 @@ def phase_train(card, peak_ops):
         opt.step()
         opt.clear_grad()
         return loss.detach()
+    return layers, total, model, opt, step
 
+
+def phase_train(card, peak_ops):
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    hidden, _, _, seq, _, batch = TRAIN_DIMS
+    layers, total, model, opt, step = train_setup()
+    n_params = model.num_params()
+    log(f"[5/8] train Llama-7B width, {layers} of 32 layers (bench.py's "
+        f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
+        f"bf16, eager AdamW")
     steps = 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -665,7 +909,6 @@ def phase_train(card, peak_ops):
         if launches[n] != expect:
             raise AssertionError(f"{n} launched {launches[n]} times, "
                                  f"expected {expect}")
-    profile_train_step(step, card)
     del model, opt, step
     torch.cuda.empty_cache()
     return launches
@@ -700,7 +943,7 @@ def phase_train_parity():
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.optimizer import AdamW
-    log("[6/6] train parity: tiny f32 Llama, card vs CPU")
+    log("[6/8] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
     on_card = LlamaForCausalLM(cfg, seed=SEED)
     on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
@@ -738,6 +981,201 @@ def phase_train_parity():
         raise AssertionError(f"tiny model loss did not fall: {losses}")
 
 
+def set_quant_kernels(model, on: bool) -> None:
+    """Point every quantized Linear at the kernel (on) or at the plain
+    dequantize-then-matmul path (off): the plain comparison engine runs the
+    same quantized model."""
+    from paddle_tpu_torch.quantize import QuantizedLinear
+    for m in model.modules():
+        if isinstance(m, QuantizedLinear):
+            m.kernel = on
+
+
+def model_gb(model) -> float:
+    return sum(t.numel() * t.element_size()
+               for t in list(model.parameters()) + list(model.buffers())
+               ) / 1e9
+
+
+def quant_serve_run(card, bits: int, kv_quant: str):
+    """Llama-7B (bf16, seed weights) quantized on the card to int{bits}
+    weights, served with the KV pool in ``kv_quant``: the serve traffic, the
+    launch counts of the run, and the first-decode-step logits against the
+    plain paths on the same quantized model and against the bf16 model."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    from paddle_tpu_torch.quantize import (QuantizedLinear,
+                                           quantize_for_inference)
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    cfg = llama_7b_config()
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    cmp_prompts = compare_prompts(cfg.vocab_size)
+    flags.set_flags({"serving_kv_quant": "off"})
+    ref = first_decode_logits(
+        ServingEngine(model, num_blocks=256, **SERVE_KW), cmp_prompts, 4)
+    bf16_gb = model_gb(model)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = quantize_for_inference(model, bits=bits)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    floor = {8: 30.0, 4: 10.0}[bits]
+    log(f"  int{bits} weights (group {report['group']}): quantized "
+        f"{len(report['layers'])} layers on the card in {quant_s:.1f} s; "
+        f"weights {bf16_gb:.2f} GB bf16 -> {model_gb(model):.2f} GB; "
+        f"snr_db min {report['snr_db_min']:.2f} (bar {floor:g}) median "
+        f"{report['snr_db_median']:.2f}")
+    if not report["snr_db_min"] > floor:
+        raise AssertionError(f"int{bits} snr_db_min {report['snr_db_min']}")
+    qlinears = [m for m in model.modules() if isinstance(m, QuantizedLinear)]
+    assert len(qlinears) == 7 * cfg.num_hidden_layers + 1
+    assert all(m.kernel for m in qlinears), "quantized Linears off the kernel"
+    flags.set_flags({"serving_kv_quant": kv_quant})
+    try:
+        engine = ServingEngine(model, num_blocks=2048, **SERVE_KW)
+        plain = ServingEngine(model, num_blocks=256, use_kernel=False,
+                              **SERVE_KW)
+    finally:
+        flags.set_flags({"serving_kv_quant": "off"})
+    assert engine._use_kernel and not plain._use_kernel
+    assert engine.kv.quantized == (kv_quant == "int8")
+    log(f"  KV pool ({kv_quant if kv_quant != 'off' else 'bf16'}) "
+        f"{engine.kv.pool_bytes() / 1e9:.2f} GB ({engine.kv.num_blocks} "
+        f"pages of {engine.kv.block_size})")
+    engine.warmup()
+    launches, stats = serve_traffic(engine, cfg, card)
+    steps = stats["prefill_steps"] + stats["decode_steps"]
+    rpa = "rpa_decode_quant" if engine.kv.quantized else "rpa_decode"
+    expect = {f"qmm_i{bits}": steps * QMM_LAUNCHES_A_STEP,
+              rpa: stats["decode_steps"] * cfg.num_hidden_layers}
+    log(f"  launches: " + ", ".join(
+        f"{n} {launches[n]}" for n in ("qmm_i8", "qmm_i4", "rpa_decode",
+                                       "rpa_decode_quant"))
+        + f"; {stats['prefill_steps']} prefill + {stats['decode_steps']} "
+        f"decode steps x {QMM_LAUNCHES_A_STEP} quantized products, decode "
+        f"steps x {cfg.num_hidden_layers} layers")
+    for n in ("qmm_i8", "qmm_i4", "rpa_decode", "rpa_decode_quant"):
+        if launches[n] != expect.get(n, 0) or (n in expect and not
+                                               expect[n] > 0):
+            raise AssertionError(f"{n} launched {launches[n]} times, "
+                                 f"expected {expect.get(n, 0)}")
+    a = first_decode_logits(engine, cmp_prompts, 4)
+    set_quant_kernels(model, False)
+    try:
+        b = first_decode_logits(plain, cmp_prompts, 4)
+    finally:
+        set_quant_kernels(model, True)
+    rel = ((a - b).norm() / b.norm()).item()
+    agree = int((a.argmax(-1) == b.argmax(-1)).sum())
+    rel_bf16 = ((a - ref).norm() / ref.norm()).item()
+    agree_bf16 = int((a.argmax(-1) == ref.argmax(-1)).sum())
+    log(f"  first decode step logits, kernel engine vs plain paths on the "
+        f"same quantized model: rel err {rel:.3e} (tol {LOGITS_REL_TOL}), "
+        f"argmax agree {agree}/{len(a)}; against the bf16 model's "
+        f"(informational): rel err {rel_bf16:.3e}, argmax agree "
+        f"{agree_bf16}/{len(a)}")
+    assert torch.isfinite(a).all() and a.shape == (len(cmp_prompts),
+                                                   cfg.vocab_size)
+    if not rel <= LOGITS_REL_TOL:
+        raise AssertionError(f"int{bits} kernel vs plain logits {rel:.3e}")
+    del plain, engine, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_quant_serve(card):
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_tiny_config)
+    from paddle_tpu_torch.quantize import quantize_for_inference
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    log("[7/8] quantized serve: Llama-7B (full width and depth), (a) int8 "
+        "weights + int8 KV")
+    launches = quant_serve_run(card, 8, "int8")
+    log("  (b) int4 weights + bf16 KV")
+    launches_b = quant_serve_run(card, 4, "off")
+    out = {"qmm_i8": launches["qmm_i8"],
+           "rpa_decode_quant": launches["rpa_decode_quant"],
+           "qmm_i4": launches_b["qmm_i4"]}
+
+    # tiny f32 Llama, int8 weights (group 8) + int8 KV, card vs CPU
+    cfg = llama_tiny_config(num_hidden_layers=2, max_position_embeddings=64)
+    on_card = LlamaForCausalLM(cfg, seed=SEED)
+    on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
+    on_cpu.load_state_dict(on_card.state_dict())
+    rc = quantize_for_inference(on_card, bits=8, group=8)
+    rp = quantize_for_inference(on_cpu, bits=8, group=8)
+    assert on_card.lm_head.kernel and not on_cpu.lm_head.kernel
+    for name, p in on_card.named_parameters():
+        if not torch.equal(p.detach().cpu(),
+                           dict(on_cpu.named_parameters())[name].detach()):
+            raise AssertionError(f"{name}: codes or scales differ card vs "
+                                 f"CPU")
+    small = [[1, 2, 3, 4, 5], [7, 8, 9], list(range(11, 30))]
+    kw = dict(block_size=4, num_blocks=64, max_batch=3, prefill_chunk=8,
+              max_seq_len=40)
+    flags.set_flags({"serving_kv_quant": "int8"})
+    try:
+        engines = [ServingEngine(on_card, **kw),
+                   ServingEngine(on_cpu, device="cpu", **kw)]
+    finally:
+        flags.set_flags({"serving_kv_quant": "off"})
+    assert engines[0]._use_kernel and engines[0].kv.quantized
+    a, b = (first_decode_logits(e, small, 6) for e in engines)
+    rel = ((a.cpu() - b).norm() / b.norm()).item()
+    toks = [e.generate(small, max_new_tokens=6) for e in engines]
+    log(f"  tiny f32 llama, int8 weights + int8 KV: snr_db min "
+        f"{rc['snr_db_min']:.2f} (CPU {rp['snr_db_min']:.2f}); first decode "
+        f"logits card vs CPU rel err {rel:.3e} (tol {QUANT_PARITY_RTOL}); "
+        f"greedy tokens equal: {toks[0] == toks[1]}")
+    if not rel <= QUANT_PARITY_RTOL:
+        raise AssertionError(f"tiny quantized logits differ: {rel:.3e}")
+    if toks[0] != toks[1]:
+        raise AssertionError(f"tiny quantized tokens differ: {toks}")
+    return out
+
+
+def phase_profiles(card) -> None:
+    """Where the time goes: torch.profiler breakdowns of batch-8 decode
+    steps (bf16, then int8 weights with the int8 pool) and of one train
+    step.  They come after every timed phase: a profiler run slows the
+    host side of later work in the same process (measured on the card: the
+    train phase's timed steps took 550-900 ms each after one, 522 ms
+    without), while the profiled work itself is unaffected."""
+    from paddle_tpu_torch import flags
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    from paddle_tpu_torch.quantize import quantize_for_inference
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    log("[8/8] where the time goes (torch.profiler, after the timed phases)")
+    cfg = llama_7b_config()
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    prompts = serve_prompts(SEED, cfg.vocab_size)
+    for bits in (None, 8):
+        if bits:
+            quantize_for_inference(model, bits=bits)
+            flags.set_flags({"serving_kv_quant": "int8"})
+        try:
+            engine = ServingEngine(model, num_blocks=2048, **SERVE_KW)
+        finally:
+            flags.set_flags({"serving_kv_quant": "off"})
+        engine.warmup()
+        log(f"  serve, {'int8 weights and int8 KV' if bits else 'bf16'}:")
+        profile_decode(engine, prompts, card)
+        del engine
+        torch.cuda.empty_cache()
+    del model
+    torch.cuda.empty_cache()
+    layers, _, model, opt, step = train_setup()
+    step()                                   # warm-up
+    log(f"  train, {layers} layers:")
+    profile_train_step(step, card)
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -746,7 +1184,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/6] device")
+    log("[1/8] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -757,7 +1195,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/6] build")
+    log("[2/8] build")
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -767,12 +1205,15 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
 
-    log("[3/6] kernel vs plain version")
-    rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw)
-    launches = phase_serve(card)
+    log("[3/8] kernel vs plain version")
+    rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
+        phase_quant_kernels(card, bw)
+    launches = {"rpa_decode": phase_serve(card)["rpa_decode"]}
     launches.update({n: v for n, v in phase_train(
         card, PEAK_OPS[torch.bfloat16]).items() if n.startswith("flash_")})
     phase_train_parity()
+    launches.update(phase_quant_serve(card))
+    phase_profiles(card)
     for row in rows:
         row["launches"] = launches[row["name"]]
     log(f"total {time.perf_counter() - t_start:.1f} s")

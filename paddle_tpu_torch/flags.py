@@ -1,7 +1,8 @@
-"""Runtime flag registry: the serving flags this slice reads.
+"""Runtime flag registry: the serving and quantization flags the port
+reads.
 
 Same names, defaults and ``FLAGS_<name>`` environment seeding as
-``paddle_tpu/flags.py``; only the flags the serving path reads are defined.
+``paddle_tpu/flags.py``; only the flags the port reads are defined.
 """
 
 from __future__ import annotations
@@ -102,3 +103,23 @@ define_flag("serving_use_rpa_kernel", "auto",
             "gather path on the CPU; 'on'/'off' force one path ('on' on the "
             "CPU routes decode through the kernel wrapper, which computes "
             "its plain version for CPU tensors).")
+define_flag("serving_kv_quant", "off",
+            "Paged KV-cache pool precision (serving/kv_cache.py): 'off' "
+            "keeps pools in the model dtype; 'int8' stores K/V pages as "
+            "symmetric int8 codes with one f32 scale per (token, kv-head) "
+            "vector in a (pages, page, Hkv, 1) scale pool beside each page "
+            "pool, quantized on write by paged_kv_update_quant and "
+            "dequantized by the decode kernel after each row's load. Read "
+            "at pool construction only.")
+define_flag("weight_quant_group", 128,
+            "In-dim rows per scale group for weight-only quantization "
+            "(quantize/): each (group x out-column) block of a Linear "
+            "weight carries one f32 scale beside its int8/int4 codes.")
+define_flag("weight_quant_kernel", "auto",
+            "Weight-only quant_matmul dispatch (ops/cuda/quant_matmul.py), "
+            "decided when quantize_for_inference builds each layer: 'auto' "
+            "uses the CUDA kernel for weights on a CUDA device and the "
+            "plain dequantize-then-matmul path on the CPU; 'on'/'off' force "
+            "one path ('on' on the CPU routes through the kernel wrapper, "
+            "which computes its plain version for CPU tensors; 'off' on the "
+            "card is the caller's explicit choice of the plain path).")

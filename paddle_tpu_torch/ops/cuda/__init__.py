@@ -8,3 +8,5 @@ from .flash_attention import (  # noqa: F401
     flash_attention_bwd, flash_attention_bwd_ref, flash_attention_dkv,
     flash_attention_dkv_ref, flash_attention_dq, flash_attention_dq_ref,
     flash_attention_fwd, flash_attention_fwd_ref)
+from .quant_matmul import (  # noqa: F401
+    quant_matmul, quant_matmul_ref, use_quant_kernel)

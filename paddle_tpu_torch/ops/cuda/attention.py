@@ -2,8 +2,10 @@
 PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas/attention.py``
-``ragged_paged_attention_decode`` (TPU kernel ``_rpa_decode_kernel``); the
-kernel is ``csrc/rpa_decode.cu``.
+``ragged_paged_attention_decode`` (TPU kernels ``_rpa_decode_kernel`` and,
+over int8 pools with f32 scale pools, ``_rpa_decode_kernel_quant``); the
+kernel is ``csrc/rpa_decode.cu`` (entry points ``rpa_decode`` and
+``rpa_decode_quant``).
 
 ``ragged_paged_attention_decode`` checks its arguments, then computes the
 plain version for CPU tensors and launches the kernel for CUDA tensors —
@@ -32,7 +34,7 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # a Hopper block may opt in to 227 KB of shared memory
 _MAX_SMEM_BYTES = 232448
 
-LAUNCH_COUNTS = {"rpa_decode": 0}
+LAUNCH_COUNTS = {"rpa_decode": 0, "rpa_decode_quant": 0}
 
 
 def reset_launch_counts() -> None:
@@ -40,7 +42,8 @@ def reset_launch_counts() -> None:
         LAUNCH_COUNTS[name] = 0
 
 
-def _check_args(q, k_pages, v_pages, block_tables, seq_lens) -> None:
+def _check_args(q, k_pages, v_pages, block_tables, seq_lens,
+                k_scales=None, v_scales=None) -> None:
     if q.dim() != 3:
         raise ValueError(f"q must be (B, H, D), got shape {tuple(q.shape)}")
     if k_pages.dim() != 4 or k_pages.shape != v_pages.shape:
@@ -60,9 +63,22 @@ def _check_args(q, k_pages, v_pages, block_tables, seq_lens) -> None:
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"unsupported dtype {q.dtype}; expected float32, "
                         f"float16 or bfloat16")
-    if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"q and the pools must share one dtype, got "
-                        f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError("k_scales and v_scales come together")
+    if k_scales is None:
+        if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+            raise TypeError(f"q and the pools must share one dtype, got "
+                            f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    else:
+        if k_pages.dtype != torch.int8 or v_pages.dtype != torch.int8:
+            raise TypeError(f"with scales the pools hold int8 codes, got "
+                            f"{k_pages.dtype}/{v_pages.dtype}")
+        want = (*k_pages.shape[:3], 1)
+        for name, t in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if tuple(t.shape) != want or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 {want} (one scale "
+                                 f"per token and kv head), got {t.dtype} "
+                                 f"{tuple(t.shape)}")
     if block_tables.dim() != 2 or block_tables.shape[0] != b:
         raise ValueError(f"block_tables must be (B={b}, P), got "
                          f"{tuple(block_tables.shape)}")
@@ -73,18 +89,20 @@ def _check_args(q, k_pages, v_pages, block_tables, seq_lens) -> None:
         if t.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"{name} must be int32 or int64, got {t.dtype}")
     devices = {t.device for t in (q, k_pages, v_pages, block_tables,
-                                  seq_lens)}
+                                  seq_lens, k_scales, v_scales)
+               if t is not None}
     if len(devices) != 1:
         raise ValueError(f"all arguments must be on one device, got "
                          f"{sorted(str(x) for x in devices)}")
 
 
 def ragged_paged_attention_decode_ref(q, k_pages, v_pages, block_tables,
-                                      seq_lens, scale: Optional[float] = None):
-    """Plain PyTorch version of the decode kernel: gather every table page,
-    f32 scores, positions >= len masked with -1e30 and p forced to 0, and
-    len == 0 rows giving exact zeros.  q: (B, H, D); returns (B, H, D) in
-    q's dtype."""
+                                      seq_lens, scale: Optional[float] = None,
+                                      k_scales=None, v_scales=None):
+    """Plain PyTorch version of the decode kernel: gather every table page
+    (int8 codes times their scales, in f32, after the gather), f32 scores,
+    positions >= len masked with -1e30 and p forced to 0, and len == 0 rows
+    giving exact zeros.  q: (B, H, D); returns (B, H, D) in q's dtype."""
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
@@ -92,6 +110,9 @@ def ragged_paged_attention_decode_ref(q, k_pages, v_pages, block_tables,
     t = bt.shape[1] * page
     k = k_pages[bt].reshape(b, t, hkv, d).float()
     v = v_pages[bt].reshape(b, t, hkv, d).float()
+    if k_scales is not None:
+        k = k * k_scales[bt].reshape(b, t, hkv, 1)
+        v = v * v_scales[bt].reshape(b, t, hkv, 1)
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=2)
         v = v.repeat_interleave(h // hkv, dim=2)
@@ -117,6 +138,10 @@ def _lib() -> ctypes.CDLL:
         lib.rpa_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         lib.rpa_decode.restype = ctypes.c_int
+        lib.rpa_decode_quant.argtypes = [ctypes.c_void_p] * 8 + \
+            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
+                                  ctypes.c_void_p]
+        lib.rpa_decode_quant.restype = ctypes.c_int
         lib.rpa_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.rpa_decode_smem_bytes.restype = ctypes.c_size_t
         lib.rpa_decode_error_string.argtypes = [ctypes.c_int]
@@ -125,9 +150,13 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float):
-    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
-        raise ValueError("k_pages/v_pages must be contiguous")
+def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float,
+            k_scales=None, v_scales=None):
+    pools = [k_pages, v_pages] + ([] if k_scales is None
+                                  else [k_scales, v_scales])
+    if not all(t.is_contiguous() for t in pools):
+        raise ValueError("k_pages/v_pages (and their scales) must be "
+                         "contiguous")
     lib = _lib()
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
@@ -142,34 +171,48 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float):
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.rpa_decode(q.data_ptr(), k_pages.data_ptr(),
-                            v_pages.data_ptr(), bt.data_ptr(), sl.data_ptr(),
-                            out.data_ptr(), b, h, hkv, d, page, bt.shape[1],
-                            scale, _DTYPE_CODES[q.dtype], stream)
+        dims = (out.data_ptr(), b, h, hkv, d, page, bt.shape[1], scale,
+                _DTYPE_CODES[q.dtype], stream)
+        if k_scales is None:
+            name = "rpa_decode"
+            rc = lib.rpa_decode(q.data_ptr(), k_pages.data_ptr(),
+                                v_pages.data_ptr(), bt.data_ptr(),
+                                sl.data_ptr(), *dims)
+        else:
+            name = "rpa_decode_quant"
+            rc = lib.rpa_decode_quant(q.data_ptr(), k_pages.data_ptr(),
+                                      v_pages.data_ptr(), k_scales.data_ptr(),
+                                      v_scales.data_ptr(), bt.data_ptr(),
+                                      sl.data_ptr(), *dims)
     if rc != 0:
         raise RuntimeError(
-            f"rpa_decode launch failed: CUDA error {rc} "
+            f"{name} launch failed: CUDA error {rc} "
             f"({lib.rpa_decode_error_string(rc).decode()})")
-    LAUNCH_COUNTS["rpa_decode"] += 1
+    LAUNCH_COUNTS[name] += 1
     return out
 
 
 def ragged_paged_attention_decode(q, k_pages, v_pages, block_tables,
-                                  seq_lens, scale: Optional[float] = None):
+                                  seq_lens, scale: Optional[float] = None,
+                                  k_scales=None, v_scales=None):
     """Paged attention for one query token per sequence.
 
     ``q``: (B, H, D).  ``k_pages``/``v_pages``: (num_pages, page, Hkv, D),
     H % Hkv == 0, D <= 256, one dtype shared with q (float32, float16 or
-    bfloat16).  ``block_tables``: (B, P) page ids, padded with page 0.
+    bfloat16) — or, with ``k_scales``/``v_scales`` (float32 (num_pages,
+    page, Hkv, 1), one scale per token and kv head), int8 codes.
+    ``block_tables``: (B, P) page ids, padded with page 0.
     ``seq_lens``: (B,) valid tokens per sequence INCLUDING the current one;
     0 marks an inert slot, which outputs zeros.  Returns (B, H, D) in q's
     dtype.  CPU tensors get the plain version; CUDA tensors the kernel."""
-    _check_args(q, k_pages, v_pages, block_tables, seq_lens)
+    _check_args(q, k_pages, v_pages, block_tables, seq_lens, k_scales,
+                v_scales)
     scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_decode_ref(q, k_pages, v_pages,
                                                  block_tables, seq_lens,
-                                                 scale)
+                                                 scale, k_scales, v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    return _launch(q, k_pages, v_pages, block_tables, seq_lens, scale)
+    return _launch(q, k_pages, v_pages, block_tables, seq_lens, scale,
+                   k_scales, v_scales)

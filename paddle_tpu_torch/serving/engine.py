@@ -16,7 +16,12 @@ the reference's donated jit buffers; copy-on-write page copies queued by
 the prefix cache are applied at the start of the next step, before its KV
 writes.  Decode attention runs the CUDA ragged-paged-attention kernel when
 the engine is on the card (``FLAGS_serving_use_rpa_kernel``); prefill
-always takes the plain gather path, as in the reference.
+always takes the plain gather path, as in the reference.  With
+``FLAGS_serving_kv_quant=int8`` the pools hold int8 codes and every step
+passes their scale pools along (quantize-on-write, the quantized decode
+kernel, copy-on-write of codes and scales alike).  A model quantized by
+``quantize_for_inference`` runs its Linears through the quantized matmul
+kernel; the engine needs nothing else for it.
 """
 
 from __future__ import annotations
@@ -109,14 +114,18 @@ class ServingEngine:
         so_t = self._tensor(slot_offsets, i64)
         with torch.no_grad():
             pend = self.kv.take_pending_copies()
+            pools = self.kv.layer_pools()
             if pend:
                 src = self._tensor(np.asarray([s for s, _ in pend]), i64)
                 dst = self._tensor(np.asarray([d for _, d in pend]), i64)
-                for k, v in zip(self.kv.k_pages, self.kv.v_pages):
-                    paged_kv_copy(k, v, src, dst)
-            views = [PagedCacheView(k, v, bt_t, sl_t, sp_t, so_t, pos_t,
-                                    self._scale, kernel)
-                     for k, v in zip(self.kv.k_pages, self.kv.v_pages)]
+                # a copied page takes its scales with it (int8 pool)
+                for layer in pools:
+                    for a, b in zip(layer[0::2], layer[1::2]):
+                        paged_kv_copy(a, b, src, dst)
+            views = [PagedCacheView(layer[0], layer[1], bt_t, sl_t, sp_t,
+                                    so_t, pos_t, self._scale, kernel,
+                                    *layer[2:])
+                     for layer in pools]
             hidden = model.llama(self._tensor(ids, i64), caches=views,
                                  positions=pos_t)
             rows = torch.arange(hidden.shape[0], device=self.device)
@@ -129,9 +138,10 @@ class ServingEngine:
         return logits
 
     def warmup(self) -> None:
-        """Build the decode kernel (when selected) and run one zero-filled
-        step of each shape: every write lands in page 0 and seq_len 0
-        masks every read."""
+        """Run one zero-filled step of each shape, which builds every kernel
+        the steps launch (the decode kernel when selected, its int8 variant
+        for an int8 pool, the quantized matmul for a quantized model):
+        every write lands in page 0 and seq_len 0 masks every read."""
         b, c, p = self.max_batch, self.prefill_chunk, self.kv.max_pages_per_seq
         z = np.zeros
         self._run_step(z((b, 1), np.int64), z((b, 1), np.int64),

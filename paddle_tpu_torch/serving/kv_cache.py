@@ -22,10 +22,17 @@ refcounted; the first divergent append into a shared page copies it
 step); refcount-0 pages with registered content park in an LRU and are
 evicted coldest-first only when the freelist runs dry.
 
+``FLAGS_serving_kv_quant=int8`` (read at construction) makes the pools
+int8 codes with a (num_blocks, block_size, num_kv_heads, 1) f32 scale pool
+beside each, one scale per (token, kv head) vector.  The allocator, the
+prefix cache and copy-on-write move page ids and do not care: codes and
+scales travel together.
+
 ``_block_hash`` and ``block_chain`` are byte-identical to the reference's,
 so block identities match across the two packages.  Host-side state is
-plain Python; the device side is one (K, V) tensor pair per layer, updated
-in place by the engine's steps.
+plain Python; the device side is one (K, V) tensor pair per layer (plus a
+(K, V) scale pair for an int8 pool), updated in place by the engine's
+steps.
 """
 
 from __future__ import annotations
@@ -54,6 +61,13 @@ def _flag(name: str, override) -> int:
 def _prefix_cache_flag() -> bool:
     mode = str(get_flags("serving_prefix_cache")).strip().lower()
     return mode not in ("off", "0", "false", "")
+
+
+def _kv_quant_flag() -> bool:
+    """FLAGS_serving_kv_quant at pool construction: the pool dtype is
+    decided once, here."""
+    mode = str(get_flags("serving_kv_quant")).strip().lower()
+    return mode in ("int8", "on", "1", "true")
 
 
 # chain seed for block 0 (any fixed int; every process computes the
@@ -110,14 +124,26 @@ class PagedKVCache:
             1, math.ceil((max_seq_len or
                           self.block_size * (self.num_blocks - 1)) /
                          self.block_size))
+        self.quantized = _kv_quant_flag()
+        pool_dtype = torch.int8 if self.quantized else self.dtype
         shape = (self.num_blocks, self.block_size, num_kv_heads, head_dim)
+        sshape = (self.num_blocks, self.block_size, num_kv_heads, 1)
         self.k_pages: List[torch.Tensor] = []
         self.v_pages: List[torch.Tensor] = []
+        self.k_scales: Optional[List[torch.Tensor]] = \
+            [] if self.quantized else None
+        self.v_scales: Optional[List[torch.Tensor]] = \
+            [] if self.quantized else None
         for _ in range(num_layers):
-            self.k_pages.append(torch.zeros(shape, dtype=self.dtype,
+            self.k_pages.append(torch.zeros(shape, dtype=pool_dtype,
                                             device=self.device))
-            self.v_pages.append(torch.zeros(shape, dtype=self.dtype,
+            self.v_pages.append(torch.zeros(shape, dtype=pool_dtype,
                                             device=self.device))
+            if self.quantized:
+                self.k_scales.append(torch.zeros(
+                    sshape, dtype=torch.float32, device=self.device))
+                self.v_scales.append(torch.zeros(
+                    sshape, dtype=torch.float32, device=self.device))
         # page 0 is the padding sink — never handed out
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._tables: Dict[int, List[int]] = {}
@@ -177,8 +203,18 @@ class PagedKVCache:
         return (self.num_blocks - 1) - self.free_blocks
 
     def pool_bytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in self.k_pages + self.v_pages)
+        pools = self.k_pages + self.v_pages
+        if self.quantized:
+            pools = pools + self.k_scales + self.v_scales
+        return sum(t.numel() * t.element_size() for t in pools)
+
+    def layer_pools(self) -> List[Tuple[torch.Tensor, ...]]:
+        """Each layer's pools: (k, v), or (k, v, k_scales, v_scales) for an
+        int8 pool — the order ``PagedCacheView`` takes them in."""
+        if self.quantized:
+            return list(zip(self.k_pages, self.v_pages, self.k_scales,
+                            self.v_scales))
+        return list(zip(self.k_pages, self.v_pages))
 
     def blocks_needed(self, n_tokens: int) -> int:
         return math.ceil(max(n_tokens, 1) / self.block_size)

@@ -17,6 +17,10 @@ from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.attention import (
     LAUNCH_COUNTS, ragged_paged_attention_decode,
     ragged_paged_attention_decode_ref)
+from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul,
+                                                    quant_matmul_ref)
+from paddle_tpu_torch.quantize.core import (quantize_kv_rows,
+                                            quantize_weight)
 
 # kernel vs plain version, both f32 inside: f32 differs by summation
 # order; f16/bf16 outputs round once from f32 (one output ulp)
@@ -165,3 +169,100 @@ def test_flash_kernels_refuse_what_they_cannot_take(cuda_device):
         fa.flash_attention_fwd(q, k.cpu(), v, True)
     with pytest.raises(ValueError, match="Sq == Sk"):
         fa.flash_attention_fwd(q, k[:, :, :8], v[:, :, :8], True)
+
+
+def quant_rpa_inputs(device, dtype, heads, kv_heads, d, page, lens, seed=0):
+    """rpa_inputs' pools as int8 codes with one f32 scale per (token, kv
+    head); page 0 holds garbage codes and scales."""
+    q, k, v, bt, sl = rpa_inputs(device, torch.float32, heads, kv_heads, d,
+                                 page, lens, seed)
+    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    kq[0], vq[0], ks[0], vs[0] = 127, -127, 300.0, 300.0
+    return q.to(dtype), kq, vq, bt, sl, ks, vs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,heads,kv_heads,page,d", [
+    (torch.bfloat16, 32, 32, 16, 128),
+    (torch.bfloat16, 32, 8, 16, 128),
+    (torch.float32, 8, 2, 16, 64),
+    (torch.float16, 12, 4, 7, 100),
+], ids=["bf16_mha", "bf16_gqa", "f32", "f16_odd_page_d100"])
+def test_rpa_decode_quant_kernel_matches_plain_version(cuda_device, dtype,
+                                                       heads, kv_heads, page,
+                                                       d):
+    lens = [0, 1, page, page + 1, 5 * page + 3, 24 * page]
+    q, kq, vq, bt, sl, ks, vs = quant_rpa_inputs(cuda_device, dtype, heads,
+                                                 kv_heads, d, page, lens)
+    before = dict(LAUNCH_COUNTS)
+    got = ragged_paged_attention_decode(q, kq, vq, bt, sl, k_scales=ks,
+                                        v_scales=vs)
+    want = ragged_paged_attention_decode_ref(q, kq, vq, bt, sl, None, ks, vs)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["rpa_decode_quant"] == \
+        before["rpa_decode_quant"] + 1
+    assert LAUNCH_COUNTS["rpa_decode"] == before["rpa_decode"]
+    torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.gpu
+def test_rpa_decode_quant_kernel_refuses_what_it_cannot_take(cuda_device):
+    q, kq, vq, bt, sl, ks, vs = quant_rpa_inputs(cuda_device, torch.float32,
+                                                 8, 2, 64, 16, [3, 5])
+    with pytest.raises(ValueError, match="one device"):
+        ragged_paged_attention_decode(q, kq, vq, bt, sl, k_scales=ks.cpu(),
+                                      v_scales=vs)
+    strided = ks.transpose(0, 1).contiguous().transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        ragged_paged_attention_decode(q, kq, vq, bt, sl, k_scales=strided,
+                                      v_scales=vs)
+
+
+# quantized matmul kernel vs plain version, both f32 products and sums in
+# another order: f32 relative L2 1e-5; 16-bit outputs round once from f32
+# (half an ulp, 2^-9 of bf16), so a relative L2 of 4e-3
+QMM_REL = {torch.float32: 1e-5, torch.float16: 4e-3, torch.bfloat16: 4e-3}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 512, 384, 128),
+    (8, 4096, 1024, 128),
+    (256, 1024, 512, 128),
+    (8, 300, 77, 64),          # K padded to a group multiple, odd N
+    (40, 160, 48, 8),          # the tiny model's group
+    (3, 21, 10, 3),            # odd group: int4 pads one more group
+], ids=["m1", "m8", "m256", "padded_k_odd_n", "m40_g8", "odd_group"])
+def test_quant_matmul_kernel_matches_plain_version(cuda_device, bits, dtype,
+                                                   m, k, n, group):
+    g = torch.Generator(device=cuda_device).manual_seed(m * k + n)
+    w = torch.randn(k, n, generator=g, device=cuda_device)
+    x = torch.randn(m, k, generator=g, device=cuda_device).to(dtype)
+    qw, s, grp = quantize_weight(w, bits=bits, group=group)
+    before = dict(LAUNCH_COUNTS)
+    got = quant_matmul(x, qw, s, bits=bits, group=grp)
+    want = quant_matmul_ref(x, qw, s, bits=bits, group=grp)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS[f"qmm_i{bits}"] == before[f"qmm_i{bits}"] + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    diff = (got.float() - want.float()).norm().item()
+    assert diff <= QMM_REL[dtype] * want.float().norm().item(), diff
+
+
+@pytest.mark.gpu
+def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
+    w = torch.randn(64, 32, device=cuda_device)
+    x = torch.randn(4, 64, device=cuda_device)
+    qw, s, grp = quantize_weight(w, bits=8, group=16)
+    before = dict(LAUNCH_COUNTS)
+    with pytest.raises(ValueError, match="one device"):
+        quant_matmul(x, qw.cpu(), s, bits=8, group=grp)
+    with pytest.raises(ValueError, match="needs codes"):
+        quant_matmul(x, qw, s, bits=4, group=grp)
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_matmul(x, qw.t().contiguous().t(), s, bits=8, group=grp)
+    assert LAUNCH_COUNTS == before

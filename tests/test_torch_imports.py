@@ -65,12 +65,17 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.nn.functional.attention, "
         "paddle_tpu_torch.nn.functional.loss, paddle_tpu_torch.nn.clip, "
         "paddle_tpu_torch.optimizer, paddle_tpu_torch.optimizer.lr, "
-        "paddle_tpu_torch.regularizer\n"
+        "paddle_tpu_torch.regularizer, paddle_tpu_torch.quantize, "
+        "paddle_tpu_torch.quantize.core, "
+        "paddle_tpu_torch.quantize.calibration, "
+        "paddle_tpu_torch.quantize.layers, "
+        "paddle_tpu_torch.ops.cuda.quant_matmul\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
         "assert 'paddle_tpu_torch.serving.engine' in new\n"
         "assert 'paddle_tpu_torch.optimizer.optimizer' in new\n"
+        "assert 'paddle_tpu_torch.quantize.layers' in new\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

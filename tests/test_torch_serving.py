@@ -282,7 +282,9 @@ def test_flag_defaults_match_reference():
     from paddle_tpu.flags import flag_info as jax_flag_info
     for name in ("serving_block_size", "serving_num_blocks",
                  "serving_max_batch", "serving_prefill_chunk",
-                 "serving_prefix_cache", "serving_use_rpa_kernel"):
+                 "serving_prefix_cache", "serving_use_rpa_kernel",
+                 "serving_kv_quant", "weight_quant_group",
+                 "weight_quant_kernel"):
         assert tflags.flag_info(name)["default"] == \
             jax_flag_info(name).default, name
         assert tflags.flag_info(name)["doc"], name
