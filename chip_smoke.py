@@ -12,7 +12,8 @@ and prints no result line):
 3. kernel — each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, plus edge cases; kernel, plain and
    library times with CUDA events (L2 flushed between launches) and the
-   card's bound for the same work;
+   card's bound for the same work (the ragged flash forward, which no
+   path calls, at the serving chunk shape);
 4. serve  — Llama-7B at full width and depth (random weights from a seed,
    bf16) behind ``ServingEngine``: 10 greedy requests, launch counts read
    around the run, first-decode-step logits held against an engine on the
@@ -23,21 +24,27 @@ and prints no result line):
    eagerly with AdamW, bench_llama's optimizer and data: one warm-up and
    three timed steps on one batch, launch counts read around them, losses
    finite and falling;
-6. train parity — a tiny f32 Llama takes three AdamW steps on the card
+6. packed attention — ``flash_attn_unpadded`` forward and backward at
+   Llama-7B's attention width (32 heads x 128) for each of 32 layers on
+   seeded q/k/v, T = 4096 tokens in six documents, causal, bf16: launch
+   counts read around the run, outputs and gradients finite, each
+   document's equal to dense ``flash_sdpa`` on that document alone;
+7. train parity — a tiny f32 Llama takes three AdamW steps on the card
    (through the kernels) and on the CPU (through their plain versions)
    in this process; losses and parameters must agree;
-7. quantized serve — Llama-7B at full width and depth quantized on the
+8. quantized serve — Llama-7B at full width and depth quantized on the
    card by ``quantize_for_inference``: (a) int8 weights with the int8 KV
    pool, (b) int4 weights with the bf16 pool, each serving phase 4's
    traffic with launch counts read around the run, the report's SNR
    checked, and first-decode-step logits held against the same quantized
    model on the plain paths (and printed against the bf16 model's); then
    a tiny f32 Llama with int8 weights and int8 KV on the card vs the CPU;
-8. profiles — torch.profiler breakdowns of batch-8 decode steps (bf16;
+9. profiles — torch.profiler breakdowns of batch-8 decode steps (bf16;
    int8 weights and KV) and of one train step, after every timed phase,
    since a profiler run slows the host side of later work.
 
-The second-to-last stdout line is ``{"kernels": [...]}``; the last is
+The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
+``launches`` counted on the path named by its ``launches_in``); the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -326,27 +333,32 @@ def flash_visible(sq, sk, causal):
     return sq * (sq + 1) // 2 if causal else sq * sk
 
 
-def flash_bounds(q, k, causal, bw):
-    """Least time of each kernel at these inputs: each input read once and
-    each output written once over the memory rate, or the products'
+def attn_bounds(b, h, hkv, sq, sk, d, el, pairs, dtype, bw, prefix):
+    """Least time of the forward, dq and dk/dv kernels over ``pairs``
+    visible (query, key) pairs of each (batch, head): each input read once
+    and each output written once over the memory rate, or the products'
     multiply-adds over the dense rate of the input type; the larger."""
-    b, h, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
-    el = q.element_size()
-    vis = flash_visible(sq, sk, causal)
     qo = b * h * sq * d * el            # q, out, dO or dq
     kv = b * hkv * sk * d * el          # k, v, dk or dv
     lse = 4 * b * h * sq
-    work = {"flash_fwd": (2, 2 * qo + 2 * kv + lse),          # QK, PV
-            "flash_dq": (3, 4 * qo + 2 * kv + lse),           # + dO V, dS K
-            "flash_dkv": (4, 3 * qo + 4 * kv + lse)}          # + P dO, dS Q
+    work = {"fwd": (2, 2 * qo + 2 * kv + lse),          # QK, PV
+            "dq": (3, 4 * qo + 2 * kv + lse),           # + dO V, dS K
+            "dkv": (4, 3 * qo + 4 * kv + lse)}          # + P dO, dS Q
     out = {}
     for name, (products, nbytes) in work.items():
-        t_ops = 2 * products * b * h * vis * d / PEAK_OPS[q.dtype] * 1e3
+        t_ops = 2 * products * b * h * pairs * d / PEAK_OPS[dtype] * 1e3
         t_bytes = nbytes / bw * 1e3
-        out[name] = (t_ops, "operations") if t_ops >= t_bytes else \
-            (t_bytes, "bytes")
+        out[f"{prefix}_{name}"] = (t_ops, "operations") if t_ops >= t_bytes \
+            else (t_bytes, "bytes")
     return out
+
+
+def flash_bounds(q, k, causal, bw):
+    """attn_bounds of the dense kernels at these (B, H, S, D) inputs."""
+    b, h, sq, d = q.shape
+    return attn_bounds(b, h, k.shape[1], sq, k.shape[2], d,
+                       q.element_size(), flash_visible(sq, k.shape[2], causal),
+                       q.dtype, bw, "flash")
 
 
 def phase_flash_kernels(card, bw):
@@ -422,6 +434,239 @@ def phase_flash_kernels(card, bw):
              # library call computes dq alone or dk/dv alone
              "library_ms": lib_fwd if n == "flash_fwd" else None}
             for n in ms]
+
+
+# the packed-training shape: six documents of Llama-scale lengths packed
+# into T = 4096 tokens at Llama-7B's attention width (H = 32, D = 128)
+PACKED_DOCS = (1531, 1000, 700, 517, 255, 93)
+PACKED_DIMS = (32, 128)                       # heads, head_dim
+
+
+def cu_of(lengths, device="cuda"):
+    """cu_seqlens (int32) of documents of these lengths."""
+    return torch.tensor(np.concatenate([[0], np.cumsum(lengths)]),
+                        dtype=torch.int32, device=device)
+
+
+def segments(cu, t):
+    """Lengths of the segments the kernels see: before cu[0], each cu
+    interval, and the tail past cu[-1] (empty ones dropped)."""
+    edges = [0] + [min(max(int(x), 0), t) for x in cu.tolist()] + [t]
+    return [b - a for a, b in zip(edges[:-1], edges[1:]) if b > a]
+
+
+def varlen_pairs(cu, t, causal):
+    """Visible (query, key) pairs of one head of a packed batch."""
+    return sum(n * (n + 1) // 2 if causal else n * n
+               for n in segments(cu, t))
+
+
+def varlen_case(label, heads, kv_heads, t, d, dtype, causal, cu, seed):
+    """The three varlen kernels against their plain versions on the same
+    packed (H, T, D) inputs (the backward kernels from the plain forward's
+    out and lse).  Returns the inputs and each kernel's max abs error."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v, do = (x[0] for x in flash_inputs(1, heads, kv_heads, t, d,
+                                              dtype, seed))
+    cu = torch.tensor(cu, dtype=torch.int32, device="cuda")
+    out, lse = fa.varlen_flash_fwd(q, k, v, cu, causal)
+    ro, rl = fa.varlen_flash_fwd_ref(q, k, v, cu, causal)
+    dq = fa.varlen_flash_dq(q, k, v, cu, ro, rl, do, causal)
+    rq = fa.varlen_flash_dq_ref(q, k, v, cu, ro, rl, do, causal)
+    dk, dv = fa.varlen_flash_dkv(q, k, v, cu, ro, rl, do, causal)
+    rk, rv = fa.varlen_flash_dkv_ref(q, k, v, cu, ro, rl, do, causal)
+    torch.cuda.synchronize()
+    lse_err = (lse - rl).abs()
+    if bool((lse_err > 1e-5 * rl.abs() + 1e-5).any()):
+        raise AssertionError(f"{label}: lse past 1e-5 relative, max abs "
+                             f"{lse_err.max().item():.3e}")
+    errs = {"varlen_fwd": max(flash_compare(f"{label} out", out, ro, dtype),
+                              lse_err.max().item()),
+            "varlen_dq": flash_compare(f"{label} dq", dq, rq, dtype),
+            "varlen_dkv": max(flash_compare(f"{label} dk", dk, rk, dtype),
+                              flash_compare(f"{label} dv", dv, rv, dtype))}
+    log(f"  {label}: H={heads} Hkv={kv_heads} T={t} D={d} "
+        f"{str(dtype).replace('torch.', '')} "
+        f"{'causal' if causal else 'full'} segments "
+        f"{segments(cu, t)}; max abs err fwd {errs['varlen_fwd']:.3e} dq "
+        f"{errs['varlen_dq']:.3e} dkv {errs['varlen_dkv']:.3e}")
+    return (q, k, v, do, cu, ro, rl), errs
+
+
+def ragged_pairs(sq, lens, causal):
+    """Visible (query, key) pairs of one head, summed over the batch: a
+    row at or past the length still sees all its length's keys."""
+    total = 0
+    for n in lens:
+        n = min(max(int(n), 0), sq)
+        total += n * (n + 1) // 2 + (sq - n) * n if causal else sq * n
+    return total
+
+
+def ragged_case(label, b, h, sq, sk, d, dtype, causal, lens, seed):
+    """The ragged kernel against its plain version on every row; a length
+    of 0 gives zeros, rows past a length > 0 do not (the TPU kernel's
+    mask).  Returns the inputs and the max abs error."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn(b, h, s, d, generator=g, device="cuda").to(dtype)
+               for s in (sq, sk, sk))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    got = fa.flash_attention_ragged_bhsd(q, k, v, kv_lens, causal)
+    want = fa.flash_attention_ragged_bhsd_ref(q, k, v, kv_lens, causal)
+    torch.cuda.synchronize()
+    err = flash_compare(f"{label} out", got, want, dtype)
+    for i, n in enumerate(lens):
+        if bool((got[i] == 0).all()) != (n == 0):
+            raise AssertionError(f"{label}: sequence {i} (length {n}) is "
+                                 f"{'all' if n else 'not all'} zeros")
+    log(f"  {label}: B={b} H={h} Sq={sq} Sk={sk} D={d} "
+        f"{str(dtype).replace('torch.', '')} "
+        f"{'causal' if causal else 'full'} kv_lens={list(lens)}; max abs "
+        f"err {err:.3e}")
+    return (q, k, v, kv_lens), err
+
+
+def phase_varlen_kernels(card, bw):
+    """varlen_fwd, varlen_dq, varlen_dkv and ragged_fwd against their plain
+    versions at the full-width shapes and at edge cases, with kernel,
+    plain and library times and the bounds.  Returns the kernels' rows
+    (ragged_fwd's launches are this phase's own: no path calls it)."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    heads, d = PACKED_DIMS
+    docs = cu_of(PACKED_DOCS).tolist()
+    t = docs[-1]
+    errs = {}
+    cases = [
+        ("packed training shape", heads, heads, t, d, bf16, True, docs),
+        ("packed, non-causal", heads, heads, t, d, bf16, False, docs),
+        ("packed, GQA 32q/8kv", heads, 8, t, d, bf16, True, docs),
+        ("float32, one-token documents", 8, 2, 300, 64, f32, True,
+         [0, 1, 2, 150, 300]),
+        ("fp16 D=64, T=1000 (not a multiple of 64), one-token documents",
+         16, 16, 1000, 64, f16, True, [0, 1, 2, 3, 500, 999, 1000]),
+        ("tail past cu[-1], non-causal, GQA", 16, 4, 777, 128, bf16, False,
+         [0, 100, 400, 700]),
+        ("float32 non-causal D=128, a tail", 4, 4, 200, 128, f32, False,
+         [0, 50, 150]),
+    ]
+    main = None
+    for i, case in enumerate(cases):
+        inputs, e = varlen_case(*case, seed=SEED + 90 + i)
+        for name, x in e.items():
+            errs[name] = max(errs.get(name, 0.0), x)
+        if main is None:
+            main = inputs
+    q, k, v, do, cu, out, lse = main
+    causal = True
+    ms = {"varlen_fwd": time_ms(lambda: fa.varlen_flash_fwd(q, k, v, cu,
+                                                            causal)),
+          "varlen_dq": time_ms(lambda: fa.varlen_flash_dq(
+              q, k, v, cu, out, lse, do, causal)),
+          "varlen_dkv": time_ms(lambda: fa.varlen_flash_dkv(
+              q, k, v, cu, out, lse, do, causal))}
+    plain = {"varlen_fwd": time_ms(lambda: fa.varlen_flash_fwd_ref(
+                 q, k, v, cu, causal), iters=5, warmup=1),
+             "varlen_dq": time_ms(lambda: fa.varlen_flash_dq_ref(
+                 q, k, v, cu, out, lse, do, causal), iters=5, warmup=1),
+             "varlen_dkv": time_ms(lambda: fa.varlen_flash_dkv_ref(
+                 q, k, v, cu, out, lse, do, causal), iters=5, warmup=1)}
+    # library yardstick, never on the path: SDPA over the (1, H, T, D)
+    # views with the block-diagonal causal boolean mask, forward, and
+    # forward + backward
+    seg = fa.segment_ids(cu, t)
+    mask = (seg[:, None] == seg[None, :]) & torch.ones(
+        t, t, dtype=torch.bool, device="cuda").tril()
+    q4, k4, v4, do4 = (x[None] for x in (q, k, v, do))
+    lib_fwd = time_ms(lambda: tf.scaled_dot_product_attention(
+        q4, k4, v4, attn_mask=mask))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q4, k4, v4))
+
+    def sdpa_fwd_bwd():
+        o = tf.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        torch.autograd.grad(o, (qg, kg, vg), do4)
+    lib_fwd_bwd = time_ms(sdpa_fwd_bwd)
+    del mask, qg, kg, vg
+    bounds = attn_bounds(1, heads, heads, t, t, d, 2,
+                         varlen_pairs(cu, t, causal), bf16, bw, "varlen")
+    log(f"  timing at the packed training shape ({card}; "
+        f"{varlen_pairs(cu, t, causal):,} visible pairs a head), ms: "
+        + "; ".join(f"{n} kernel {ms[n]:.4f} plain {plain[n]:.4f} bound "
+                    f"{bounds[n][0]:.4f} ({bounds[n][1]})" for n in ms))
+    log(f"  library (never on the path): SDPA with the block-diagonal "
+        f"causal mask, forward {lib_fwd:.4f} ms, forward+backward "
+        f"{lib_fwd_bwd:.4f} ms (backward alone "
+        f"{lib_fwd_bwd - lib_fwd:.4f} ms); the three kernels together "
+        f"{sum(ms.values()):.4f} ms")
+
+    # the ragged forward: the serving chunk shape, then edge cases
+    s_main, lens_main = 1024, [1024, 1000, 777, 512, 300, 129, 64, 0]
+    before = LAUNCH_COUNTS["ragged_fwd"]
+    (rq, rk, rv, rl), err = ragged_case(
+        "ragged, serving chunk shape", 8, heads, s_main, s_main, d, bf16,
+        True, lens_main, SEED + 100)
+    ragged_errs = [err]
+    for i, case in enumerate([
+            ("ragged, float32", 4, 8, 300, 300, 64, f32, True,
+             [300, 1, 0, 150]),
+            ("ragged, fp16 D=64", 3, 16, 200, 200, 64, f16, True,
+             [64, 130, 7]),
+            ("ragged, non-causal, Sq < Sk", 3, 8, 100, 333, 128, bf16, False,
+             [333, 64, 0])]):
+        ragged_errs.append(ragged_case(*case, SEED + 101 + i)[1])
+    ragged_launches = LAUNCH_COUNTS["ragged_fwd"] - before
+    r_ms = time_ms(lambda: fa.flash_attention_ragged_bhsd(rq, rk, rv, rl,
+                                                          True))
+    r_plain = time_ms(lambda: fa.flash_attention_ragged_bhsd_ref(
+        rq, rk, rv, rl, True), iters=5, warmup=1)
+    cols = torch.arange(s_main, device="cuda")
+    r_mask = ((cols[None, :] < rl.long()[:, None])[:, None, None, :]
+              & torch.ones(s_main, s_main, dtype=torch.bool,
+                           device="cuda").tril())
+    r_lib = time_ms(lambda: tf.scaled_dot_product_attention(
+        rq, rk, rv, attn_mask=r_mask))
+    del r_mask
+    # bytes: q and out, and the K/V rows below each length (the kernel
+    # reads no others); operations: QK and PV over the visible pairs
+    b_, el = rq.shape[0], rq.element_size()
+    keys = sum(min(n, s_main) for n in lens_main)
+    r_bytes = (2 * b_ * heads * s_main * d + 2 * heads * keys * d) * el \
+        + 4 * b_
+    r_pairs = ragged_pairs(s_main, lens_main, True)
+    t_bytes = r_bytes / bw * 1e3
+    t_ops = 4 * heads * r_pairs * d / PEAK_OPS[bf16] * 1e3
+    r_bound, r_by = (t_bytes, "bytes") if t_bytes >= t_ops else \
+        (t_ops, "operations")
+    log(f"  timing at the ragged serving chunk shape ({card}; {r_pairs:,} "
+        f"visible pairs a head): kernel {r_ms:.4f} ms, plain "
+        f"{r_plain:.4f} ms, library (SDPA with the kv_lens causal mask) "
+        f"{r_lib:.4f} ms, bound {r_bound:.4f} ms ({r_by})")
+    src = {"varlen_fwd": ("flash_fwd.cu", "472"),
+           "varlen_dq": ("flash_bwd.cu", "568"),
+           "varlen_dkv": ("flash_bwd.cu", "614")}
+    rows = [{"name": n, "route": "cuda",
+             "source": f"paddle_tpu_torch/ops/cuda/csrc/{src[n][0]}",
+             "replaces": f"paddle_tpu/ops/pallas/attention.py:{src[n][1]}",
+             "launches": None, "launches_in": "packed attention (phase 6)",
+             "max_abs_err": errs[n], "ms": ms[n], "plain_ms": plain[n],
+             "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
+             # SDPA with the mask computes the forward's function; no
+             # single library call computes dq alone or dk/dv alone
+             "library_ms": lib_fwd if n == "varlen_fwd" else None}
+            for n in ms]
+    rows.append({"name": "ragged_fwd", "route": "cuda",
+                 "source": "paddle_tpu_torch/ops/cuda/csrc/flash_fwd.cu",
+                 "replaces": "paddle_tpu/ops/pallas/attention.py:724",
+                 "launches": ragged_launches,
+                 "launches_in": "its kernel checks (phase 3): no path of "
+                                "either package calls it",
+                 "max_abs_err": max(ragged_errs), "ms": r_ms,
+                 "plain_ms": r_plain, "bound_ms": r_bound, "bound_by": r_by,
+                 "library_ms": r_lib})
+    return rows
 
 
 def qmm_bound_ms(m, k, n, bits, groups, x_el, bw):
@@ -746,7 +991,7 @@ def phase_serve(card):
                                                llama_7b_config,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/8] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/9] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -866,7 +1111,7 @@ def phase_train(card, peak_ops):
     hidden, _, _, seq, _, batch = TRAIN_DIMS
     layers, total, model, opt, step = train_setup()
     n_params = model.num_params()
-    log(f"[5/8] train Llama-7B width, {layers} of 32 layers (bench.py's "
+    log(f"[5/9] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
         f"bf16, eager AdamW")
     steps = 3
@@ -937,13 +1182,109 @@ def profile_train_step(step, card) -> None:
             f"{e.count:6d}x  {e.key[:90]}")
 
 
+def phase_packed(card):
+    """Packed-sequence training attention at Llama-7B's attention width:
+    ``flash_attn_unpadded`` forward and backward once for each of 32
+    layers, on fresh seeded q/k/v (T = 4096 tokens in six documents,
+    causal, bf16).  Every launch count is set to 0 just before and read
+    just after; every output and gradient must be finite, and each
+    document's must equal dense ``flash_sdpa`` on that document alone."""
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded, flash_sdpa
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    heads, d = PACKED_DIMS
+    layers, bf16 = 32, torch.bfloat16
+    cu = cu_of(PACKED_DOCS)
+    t, longest, scale = int(cu[-1]), max(PACKED_DOCS), 1.0 / math.sqrt(d)
+    log(f"[6/9] packed attention: flash_attn_unpadded forward and backward "
+        f"at Llama-7B attention width ({heads} heads x {d}), {layers} "
+        f"layers, T={t} in documents {list(PACKED_DOCS)}, bf16, causal")
+    inputs = []
+    for i in range(layers):
+        g = torch.Generator(device="cuda").manual_seed(SEED + 200 + i)
+        q, k, v, do = (torch.randn(t, heads, d, generator=g,
+                                   device="cuda").to(bf16) for _ in range(4))
+        inputs.append([x.requires_grad_() for x in (q, k, v)] + [do])
+    marks = [[torch.cuda.Event(enable_timing=True) for _ in range(3)]
+             for _ in range(layers)]
+
+    def run():
+        outs = []
+        for (q, k, v, do), ev in zip(inputs, marks):
+            ev[0].record()
+            out, _ = flash_attn_unpadded(q, k, v, cu, cu, longest, longest,
+                                         scale, causal=True)
+            ev[1].record()
+            out.backward(do)
+            ev[2].record()
+            outs.append(out.detach())
+        return outs
+    # a warm-up pass, so that the timed run's outputs and gradients come
+    # from the caching allocator and not from first cudaMallocs (measured:
+    # a layer's backward 3.6-4.2 ms with them, 1.7 ms without)
+    run()
+    for x in inputs:
+        for y in x[:3]:
+            y.grad = None
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(LAUNCH_COUNTS)
+    fwd_ms = [a.elapsed_time(b) for a, b, _ in marks]
+    bwd_ms = [b.elapsed_time(c) for _, b, c in marks]
+    log(f"  [{card}] {layers} layers in {wall * 1e3:.1f} ms wall; a layer's "
+        f"forward {np.median(fwd_ms):.4f} ms, backward "
+        f"{np.median(bwd_ms):.4f} ms (medians, CUDA events around the "
+        f"calls)")
+    log("  launches: " + ", ".join(
+        f"{n} {launches[n]}" for n in ("varlen_fwd", "varlen_dq",
+                                       "varlen_dkv", "flash_fwd", "flash_dq",
+                                       "flash_dkv")))
+    for n in ("varlen_fwd", "varlen_dq", "varlen_dkv"):
+        if launches[n] != layers:
+            raise AssertionError(f"{n} launched {launches[n]} times, "
+                                 f"expected {layers}")
+    if any(launches[n] for n in ("flash_fwd", "flash_dq", "flash_dkv")):
+        raise AssertionError(f"dense flash kernels launched: {launches}")
+    worst = 0.0
+    for i, ((q, k, v, _), out) in enumerate(zip(inputs, outs)):
+        for name, x in (("out", out), ("dq", q.grad), ("dk", k.grad),
+                        ("dv", v.grad)):
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"layer {i}: non-finite {name}")
+    # each document alone through dense flash_sdpa (its kernels; these
+    # launches come after the counts were read)
+    for i, ((q, k, v, do), out) in enumerate(zip(inputs, outs)):
+        for lo, hi in zip(cu[:-1].tolist(), cu[1:].tolist()):
+            xs = [x.detach()[lo:hi][None].requires_grad_()
+                  for x in (q, k, v)]
+            ref, _ = flash_sdpa(*xs, scale, True)
+            ref.backward(do[lo:hi][None])
+            for name, got, want in (("out", out, ref.detach()),
+                                    ("dq", q.grad, xs[0].grad),
+                                    ("dk", k.grad, xs[1].grad),
+                                    ("dv", v.grad, xs[2].grad)):
+                worst = max(worst, flash_compare(
+                    f"layer {i} document [{lo}, {hi}) {name}", got[lo:hi],
+                    want[0], bf16))
+    log(f"  every output and gradient finite; each document's output and "
+        f"q/k/v gradients equal dense flash_sdpa on the document alone "
+        f"(relative L2 within {FLASH_REL_TOL[bf16]}; max abs err "
+        f"{worst:.3e})")
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_train_parity():
     """A tiny f32 Llama, 3 AdamW steps on the card (kernels) and on the CPU
     (plain versions) from the same weights and batch."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.optimizer import AdamW
-    log("[6/8] train parity: tiny f32 Llama, card vs CPU")
+    log("[7/9] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
     on_card = LlamaForCausalLM(cfg, seed=SEED)
     on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
@@ -1091,7 +1432,7 @@ def phase_quant_serve(card):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[7/8] quantized serve: Llama-7B (full width and depth), (a) int8 "
+    log("[8/9] quantized serve: Llama-7B (full width and depth), (a) int8 "
         "weights + int8 KV")
     launches = quant_serve_run(card, 8, "int8")
     log("  (b) int4 weights + bf16 KV")
@@ -1149,7 +1490,7 @@ def phase_profiles(card) -> None:
                                                llama_7b_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[8/8] where the time goes (torch.profiler, after the timed phases)")
+    log("[9/9] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
     prompts = serve_prompts(SEED, cfg.vocab_size)
@@ -1184,7 +1525,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/8] device")
+    log("[1/9] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -1195,7 +1536,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/8] build")
+    log("[2/9] build")
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -1205,17 +1546,28 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 log(f"  {kname}: {line.strip()}")
 
-    log("[3/8] kernel vs plain version")
+    log("[3/9] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
-        phase_quant_kernels(card, bw)
+        phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw)
     launches = {"rpa_decode": phase_serve(card)["rpa_decode"]}
     launches.update({n: v for n, v in phase_train(
         card, PEAK_OPS[torch.bfloat16]).items() if n.startswith("flash_")})
+    launches.update({n: v for n, v in phase_packed(card).items()
+                     if n.startswith("varlen_")})
     phase_train_parity()
     launches.update(phase_quant_serve(card))
     phase_profiles(card)
+    launched_in = {"rpa_decode": "serve (phase 4)",
+                   "flash_fwd": "train (phase 5)",
+                   "flash_dq": "train (phase 5)",
+                   "flash_dkv": "train (phase 5)",
+                   "qmm_i8": "quantized serve (phase 8)",
+                   "qmm_i4": "quantized serve (phase 8)",
+                   "rpa_decode_quant": "quantized serve (phase 8)"}
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        if row["name"] in launches:
+            row["launches"] = launches[row["name"]]
+        row.setdefault("launches_in", launched_in.get(row["name"]))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

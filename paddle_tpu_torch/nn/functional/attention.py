@@ -12,6 +12,13 @@ reference's ``_should_use_pallas`` gate (TPU only, seq >= 1024, the
 512/256/128 tile rule) is TPU tuning and is not ported: on the card it
 would quietly send training below seq 1024 to the plain path.  Masks and
 dropout take ``sdpa``, the plain math path.
+
+Packed sequences (``flash_attn_unpadded``, ``(total_tokens, heads,
+head_dim)`` with ``cu_seqlens``) take ``_FlashVarlen``, the same kind of
+Function over the varlen kernels, at every length on every device (the
+reference's ``t < 1024`` gate and platform check are not ported either);
+training dropout and cross-attention packing (``cu_seqlens_q`` not equal
+to ``cu_seqlens_k``) take ``_varlen_core``, the plain dense math.
 """
 
 from __future__ import annotations
@@ -22,9 +29,11 @@ from typing import Optional
 import torch
 
 from ...ops.cuda.flash_attention import (flash_attention_bwd,
-                                         flash_attention_fwd)
+                                         flash_attention_fwd, segment_ids,
+                                         varlen_flash_bwd, varlen_flash_fwd)
 
-__all__ = ["scaled_dot_product_attention", "flash_sdpa", "sdpa"]
+__all__ = ["scaled_dot_product_attention", "flash_sdpa", "sdpa",
+           "flash_attention", "flash_attn_unpadded", "sdp_kernel"]
 
 
 def _sdpa_probs(q, k, mask, scale: float, is_causal: bool):
@@ -125,3 +134,126 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     if attn_mask is None:
         return flash_sdpa(query, key, value, scale, is_causal)[0]
     return sdpa(query, key, value, attn_mask, scale, is_causal)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None):
+    """Compat shim of Paddle's ``flash_attention`` (the reference's):
+    (batch, seq, heads, head_dim) in; returns (out, None), the softmax is
+    never returned."""
+    return scaled_dot_product_attention(query, key, value, None, dropout,
+                                        causal, training), None
+
+
+def _varlen_core(q, k, v, cu_q, cu_k, scale: float, causal: bool,
+                 dropout_p: float = 0.0) -> torch.Tensor:
+    """Plain dense attention over packed tokens (the reference's
+    ``varlen_sdpa`` and ``varlen_sdpa_dropout`` ops): q (Tq, H, D), k/v
+    (Tk, Hkv, D).  A query sees the keys of its own segment (segment ids
+    from ``cu_q`` and ``cu_k``), at or before its own position inside the
+    segment when causal; logits in the input type, then an f32 softmax;
+    rows with no visible key give 0.  With ``dropout_p`` the probabilities
+    are dropped with ``torch.rand`` (torch's generator: compare with the
+    reference statistically, never draw for draw) and rescaled by
+    1 / (1 - p).  Differentiated by autograd."""
+    h, hkv = q.shape[1], k.shape[1]
+    if hkv != h:
+        k = k.repeat_interleave(h // hkv, dim=1)
+        v = v.repeat_interleave(h // hkv, dim=1)
+    cu_q = cu_q.reshape(-1).to(torch.int32)
+    cu_k = cu_k.reshape(-1).to(device=cu_q.device, dtype=torch.int32)
+    seg_q, seg_k = segment_ids(cu_q, q.shape[0]), segment_ids(cu_k,
+                                                              k.shape[0])
+    # a stretch before cu[0] has id -1 and its start is cu[-1], as the
+    # reference's negative index gives
+    loc_q = torch.arange(q.shape[0], device=q.device) - cu_q[seg_q]
+    loc_k = torch.arange(k.shape[0], device=q.device) - cu_k[seg_k]
+    logits = torch.einsum("qhd,khd->hqk", q, k).float() * scale
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        mask = mask & (loc_q[:, None] >= loc_k[None, :])
+    logits = torch.where(mask, logits, torch.full_like(logits, -1e30))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(mask.any(-1, keepdim=True), probs,
+                        torch.zeros_like(probs))
+    if dropout_p > 0.0:
+        keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
+        probs = torch.where(keep, probs / (1.0 - dropout_p),
+                            torch.zeros_like(probs))
+    return torch.einsum("hqk,khd->qhd", probs.to(q.dtype), v)
+
+
+class _FlashVarlen(torch.autograd.Function):
+    """The varlen kernels as forward and backward over (T, H, D) tensors:
+    the kernels read (H, T, D) views of the same memory.  Saves out and
+    lse; lse is not differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cu, scale, causal):
+        t = lambda x: x.transpose(0, 1)  # noqa: E731
+        out, lse = varlen_flash_fwd(t(q), t(k), t(v), cu, causal, scale)
+        out = t(out)
+        ctx.save_for_backward(q, k, v, cu, out, lse)
+        ctx.scale, ctx.causal = scale, causal
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, cu, out, lse = ctx.saved_tensors
+        t = lambda x: x.transpose(0, 1)  # noqa: E731
+        dq, dk, dv = varlen_flash_bwd(t(q), t(k), t(v), cu, t(out), lse,
+                                      t(do), ctx.causal, ctx.scale)
+        return t(dq), t(dk), t(dv), None, None, None
+
+
+def _same_packing(query, key, cu_q, cu_k) -> bool:
+    """Do q and k/v share one packing?  Identity first (the common call
+    passes one tensor twice), so that only a call with two cu tensors pays
+    ``torch.equal``'s host sync."""
+    if query.shape[0] != key.shape[0]:
+        return False
+    if cu_q is cu_k:
+        return True
+    return (cu_q.shape == cu_k.shape and cu_q.device == cu_k.device
+            and torch.equal(cu_q.to(torch.int32), cu_k.to(torch.int32)))
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale, dropout=0.0,
+                        causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None):
+    """Attention over ``cu_seqlens``-packed tokens (Paddle's
+    ``flash_attn_unpadded``): query (Tq, H, D), key/value (Tk, Hkv, D),
+    ``cu_seqlens_*`` (batch + 1,) int32 prefix sums.  Returns (out like
+    query, None).  ``max_seqlen_*`` are not needed.
+
+    Training dropout, and q and k/v packed differently, take the plain
+    dense ``_varlen_core``; otherwise ``_FlashVarlen`` (the varlen kernels
+    on the card, their plain versions on the CPU)."""
+    if dropout and training:
+        return _varlen_core(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                            float(scale), bool(causal), float(dropout)), None
+    if not _same_packing(query, key, cu_seqlens_q, cu_seqlens_k):
+        return _varlen_core(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                            float(scale), bool(causal)), None
+    out, _ = _FlashVarlen.apply(query, key, value, cu_seqlens_q,
+                                float(scale), bool(causal))
+    return out, None
+
+
+class sdp_kernel:
+    """Context-manager compat shim (``paddle.nn.functional.sdp_kernel``):
+    selects nothing."""
+
+    def __init__(self, enable_flash=True, enable_math=True,
+                 enable_mem_efficient=True) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False

@@ -1,11 +1,15 @@
-// Flash attention, backward, for Hopper (sm_90a): two kernels.
+// Flash attention, backward, for Hopper (sm_90a): two kernels, each
+// templated on the mask policy (flash_common.cuh), two entry points each.
 //
-// Replaces the TPU kernels paddle_tpu/ops/pallas/attention.py `_dq_kernel`
-// and `_dkv_kernel`, reached through `_flash_bwd`.
+// Replaces the TPU kernels of paddle_tpu/ops/pallas/attention.py:
+// - `flash_dq`, `flash_dkv` (DenseMask): `_dq_kernel` and `_dkv_kernel`,
+//   reached through `_flash_bwd`;
+// - `varlen_dq`, `varlen_dkv` (SegmentMask): `_varlen_dq_kernel` and
+//   `_varlen_dkv_kernel`, through `_varlen_flash_bwd` (packed sequences).
 //
 // What they compute, from the forward's saved output o and f32 log-sum-exp
 // lse, for each batch b and query head h (kv head h / rep):
-//   p_ij    = exp(scale * q_i . k_j - lse_i)   (0 where j is not visible)
+//   p_ij    = exp(scale * q_i . k_j - lse_i)   (0 where the mask hides j)
 //   delta_i = sum_d dO_id * o_id                (f32, recomputed per tile)
 //   dS_ij   = p_ij * (dO_i . v_j - delta_i) * scale
 //   dq_i    = sum_j dS_ij k_j
@@ -14,27 +18,30 @@
 // p and dS are rounded to the input type as operands of the products, as
 // the TPU kernels do; the sums are f32 and each output is written once.
 //
-// Bound: arithmetic.  At B=1, H=32, S=4096, D=128, causal, bf16 the dq
-// kernel does three products (206 GFLOP) and the dk/dv kernel four (275
-// GFLOP) over ~200 MB of operands, far above the H100's ~295 FLOP per byte
-// balance point.  So, as in the forward, the 16-bit kernels keep scores,
+// Bound: arithmetic at the dense training shape.  At B=1, H=32, S=4096,
+// D=128, causal, bf16 the dq kernel does three products (206 GFLOP) and
+// the dk/dv kernel four (275 GFLOP) over ~200 MB of operands, far above
+// the H100's ~295 FLOP per byte balance point.  (Packed into six
+// documents, the same T has a quarter of the pairs and the bytes set the
+// bound.)  So, as in the forward, the 16-bit kernels keep scores,
 // probabilities, dS and the accumulators in registers (mma.sync m16n8k16,
 // bf16/fp16 in, f32 out), each warp owning 16 rows, and stage only the
 // operand tiles in shared memory:
 // - `flash_dq_kernel`: one block per (64-row query tile, head, batch)
-//   loops over the key tiles up to the diagonal (the TPU kernel's
-//   sequential key axis becomes this loop); each warp computes S and dP
-//   for its 16 query rows, turns them into dS in place and accumulates
-//   dq = dS K in registers.
+//   loops over the key tiles its mask policy gives (up to the diagonal,
+//   or the tile's own documents; the TPU kernel's sequential key axis
+//   becomes this loop); each warp computes S and dP for its 16 query
+//   rows, turns them into dS in place and accumulates dq = dS K in
+//   registers.
 // - `flash_dkv_kernel`: one block of eight warps per (128-key tile, kv
 //   head, batch) keeps its K/V tile in shared memory and walks the group's
-//   `rep` query heads and, for each, the 64-row query tiles from the
-//   diagonal on.  Each warp owns 16 keys and computes S^T = K Q^T and
-//   dP^T = V dO^T directly, so P^T and dS^T are already the A operands of
-//   dv += P^T dO and dk += dS^T Q: no transpose passes through shared
-//   memory.  Summing the group inside
-//   the block needs no atomics and no repeated K/V in device memory, and
-//   is deterministic.
+//   `rep` query heads and, for each, the 64-row query tiles that see its
+//   keys (from the diagonal on, or those of its keys' documents).  Each
+//   warp owns 16 keys and computes S^T = K Q^T and dP^T = V dO^T
+//   directly, so P^T and dS^T are already the A operands of dv += P^T dO
+//   and dk += dS^T Q: no transpose passes through shared memory.  Summing
+//   the group inside the block needs no atomics and no repeated K/V in
+//   device memory, and is deterministic.
 // Operand tiles arrive by cp.async, all of a tile's copies in flight at
 // once, and probabilities are one FMA and one MUFU.EX2 each.  float32
 // inputs take kernels of plain f32 FMA out of shared memory (no TF32).
@@ -78,6 +85,7 @@ size_t dkv_smem_mma(int d) {
          + 2 * round128(kMmaTile * 4);
 }
 
+template <typename Mask>
 __global__ void __launch_bounds__(kF32Threads) flash_dq_f32_kernel(Params p) {
   constexpr int BQ = kF32Tile, BK = kF32Tile;
   const int d = p.d;
@@ -96,8 +104,8 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_f32_kernel(Params p) {
   float* lse_s = cv.take<float>(BQ);
   float* delta_s = cv.take<float>(BQ);
 
-  const int iq = gridDim.x - 1 - blockIdx.x;  // most key tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.rep;
+  const int iq = gridDim.y - 1 - blockIdx.y;  // most key tiles first
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / p.rep;
   const int q0 = iq * BQ;
   const float* qg =
       static_cast<const float*>(p.q) + b * p.q_st.b + h * p.q_st.h;
@@ -120,8 +128,9 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_f32_kernel(Params p) {
   row_stats<kF32Threads>(lse_s, delta_s, lse_g, ots, dos, ldt, q0, p.sq, BQ,
                          d);
   for (int i = threadIdx.x; i < BQ * ldo; i += kF32Threads) dqs[i] = 0.f;
-  const int k_end = p.causal ? min(p.sk, q0 + BQ) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const Mask mask(p, b);
+  const Range loop = mask.key_loop(q0, BQ);
+  for (int k0 = loop.lo; k0 < loop.hi; k0 += BK) {
     await_tiles();
     __syncthreads();  // the previous tile's readers of ks/vs/dss are done
     load_tile<kF32Threads>(ks, ldt, kg, p.k_st.s, k0, p.sk, BK, d);
@@ -133,7 +142,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_f32_kernel(Params p) {
     __syncthreads();
     for (int i = threadIdx.x; i < BQ * BK; i += kF32Threads) {
       const int r = i / BK, c = i % BK;
-      const bool ok = visible(q0 + r, k0 + c, p.sq, p.sk, p.causal);
+      const bool ok = inside(mask.keys(q0 + r), k0 + c);
       const float pr = ok ? expf(ss[r * lds + c] * p.scale - lse_s[r]) : 0.f;
       dss[r * lds + c] = pr * (dps[r * lds + c] - delta_s[r]) * p.scale;
     }
@@ -148,6 +157,7 @@ __global__ void __launch_bounds__(kF32Threads) flash_dq_f32_kernel(Params p) {
   }
 }
 
+template <typename Mask>
 __global__ void __launch_bounds__(kF32Threads)
     flash_dkv_f32_kernel(Params p) {
   constexpr int BQ = kF32Tile, BK = kF32Tile;
@@ -169,8 +179,8 @@ __global__ void __launch_bounds__(kF32Threads)
   float* lse_s = cv.take<float>(BQ);
   float* delta_s = cv.take<float>(BQ);
 
-  const int ik = blockIdx.x;  // under causality tile 0 has the most work
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int ik = blockIdx.y;  // under causality tile 0 has the most work
+  const int hk = blockIdx.x, b = blockIdx.z;
   const int k0 = ik * BK;
   const float* kg =
       static_cast<const float*>(p.k) + b * p.k_st.b + hk * p.k_st.h;
@@ -182,8 +192,9 @@ __global__ void __launch_bounds__(kF32Threads)
     dks[i] = 0.f;
     dvs[i] = 0.f;
   }
-  // under causality a key tile sees only the query rows at or after it
-  const int q_begin = p.causal ? (k0 / BQ) * BQ : 0;
+  // the query rows that see some key of the tile
+  const Mask mask(p, b);
+  const Range loop = mask.query_loop(k0, BK, BQ);
   for (int g = 0; g < p.rep; ++g) {
     const int h = hk * p.rep + g;
     const float* qg =
@@ -194,7 +205,7 @@ __global__ void __launch_bounds__(kF32Threads)
         static_cast<const float*>(p.dout) + b * p.do_st.b + h * p.do_st.h;
     const float* lse_g =
         p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
-    for (int q0 = q_begin; q0 < p.sq; q0 += BQ) {
+    for (int q0 = loop.lo; q0 < loop.hi; q0 += BQ) {
       await_tiles();
       __syncthreads();  // the previous tile's readers are done
       load_tile<kF32Threads>(qs, ldt, qg, p.q_st.s, q0, p.sq, BQ, d);
@@ -210,7 +221,7 @@ __global__ void __launch_bounds__(kF32Threads)
       __syncthreads();
       for (int i = threadIdx.x; i < BQ * BK; i += kF32Threads) {
         const int r = i / BK, c = i % BK;
-        const bool ok = visible(q0 + r, k0 + c, p.sq, p.sk, p.causal);
+        const bool ok = inside(mask.keys(q0 + r), k0 + c);
         const float pr =
             ok ? expf(ss[r * lds + c] * p.scale - lse_s[r]) : 0.f;
         ps[r * lds + c] = pr;
@@ -255,7 +266,7 @@ __device__ __forceinline__ void store_rows(T* dst, long long ss,
   }
 }
 
-template <typename T>
+template <typename T, typename Mask>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
   constexpr int BQ = kMmaTile, BK = kMmaTile;
   const int d = p.d, ld = d + pad<T>();
@@ -272,8 +283,8 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int iq = gridDim.x - 1 - blockIdx.x;  // most key tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.rep;
+  const int iq = gridDim.y - 1 - blockIdx.y;  // most key tiles first
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / p.rep;
   const int q0 = iq * BQ;
   const T* qg = static_cast<const T*>(p.q) + b * p.q_st.b + h * p.q_st.h;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_st.b + hk * p.k_st.h;
@@ -302,8 +313,11 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
 #pragma unroll
   for (int j = 0; j < 16; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
-  const int k_end = p.causal ? min(p.sk, q0 + BQ) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // the keys each of the two rows sees, and the key tiles the block visits
+  const Mask mask(p, b);
+  const Range kr0 = mask.keys(qi0), kr1 = mask.keys(qi1);
+  const Range loop = mask.key_loop(q0, BQ);
+  for (int k0 = loop.lo; k0 < loop.hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers of ks/vs are done
     load_tile<kMmaThreads>(ks, ld, kg, p.k_st.s, k0, p.sk, BK, d);
     load_tile<kMmaThreads>(vs, ld, vg, p.v_st.s, k0, p.sk, BK, d);
@@ -334,14 +348,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
       }
     }
     // dS = P (dP - delta) scale, P = exp(S scale - lse), in place in s
-    const bool full = tile_visible(q0, k0, BQ, BK, p.sq, p.sk, p.causal);
+    const bool full = mask.tile_full(q0, BQ, k0, BK);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + j * 8 + 2 * t + (e & 1);
-        const bool ok =
-            full || visible(e < 2 ? qi0 : qi1, kj, p.sq, p.sk, p.causal);
+        const bool ok = full || inside(e < 2 ? kr0 : kr1, kj);
         const float pr =
             ok ? fast_exp2(fmaf(s[j][e], scale2, e < 2 ? nl0 : nl1)) : 0.f;
         s[j][e] = pr * (dp[j][e] - (e < 2 ? dl0 : dl1)) * p.scale;
@@ -367,7 +380,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
   store_rows<T>(dqg, p.dq_st.s, dq, qi0, p.sq, nnd, t);
 }
 
-template <typename T>
+template <typename T, typename Mask>
 __global__ void __launch_bounds__(kDkvWarps * 32)
     flash_dkv_kernel(Params p) {
   constexpr int BQ = kMmaTile, BK = kDkvWarps * 16, NT = kDkvWarps * 32;
@@ -385,8 +398,8 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int ik = blockIdx.x;  // under causality tile 0 has the most work
-  const int hk = blockIdx.y, b = blockIdx.z;
+  const int ik = blockIdx.y;  // under causality tile 0 has the most work
+  const int hk = blockIdx.x, b = blockIdx.z;
   const int k0 = ik * BK;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_st.b + hk * p.k_st.h;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_st.b + hk * p.v_st.h;
@@ -401,8 +414,11 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
 #pragma unroll
     for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
 
-  // under causality a key tile sees only the query rows at or after it
-  const int q_begin = p.causal ? (k0 / BQ) * BQ : 0;
+  // the query rows that see each of the two keys, and the query tiles the
+  // block visits
+  const Mask mask(p, b);
+  const Range qr0 = mask.queries(kj0), qr1 = mask.queries(kj1);
+  const Range loop = mask.query_loop(k0, BK, BQ);
   for (int gi = 0; gi < p.rep; ++gi) {
     const int h = hk * p.rep + gi;
     const T* qg = static_cast<const T*>(p.q) + b * p.q_st.b + h * p.q_st.h;
@@ -411,7 +427,7 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
         static_cast<const T*>(p.dout) + b * p.do_st.b + h * p.do_st.h;
     const float* lse_g =
         p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
-    for (int q0 = q_begin; q0 < p.sq; q0 += BQ) {
+    for (int q0 = loop.lo; q0 < loop.hi; q0 += BQ) {
       await_tiles();
       __syncthreads();  // the previous tile's readers are done
       load_tile<NT>(qs, ld, qg, p.q_st.s, q0, p.sq, BQ, d);
@@ -447,14 +463,13 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
       }
       __syncthreads();  // lse_s and delta_s are written by all warps
       // P^T in st, dS^T in dpt; lse and delta belong to the query column
-      const bool full = tile_visible(q0, k0, BQ, BK, p.sq, p.sk, p.causal);
+      const bool full = mask.tile_full(q0, BQ, k0, BK);
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int qc = j * 8 + 2 * t + (e & 1);
-          const bool ok = full || visible(q0 + qc, e < 2 ? kj0 : kj1, p.sq,
-                                          p.sk, p.causal);
+          const bool ok = full || inside(e < 2 ? qr0 : qr1, q0 + qc);
           const float pr =
               ok ? fast_exp2(fmaf(st[j][e], scale2, -lse_s[qc] * kLog2e))
                  : 0.f;
@@ -527,6 +542,48 @@ int launch(K kernel, const Params& p, dim3 grid, int threads, size_t smem,
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+// Grids are (head, tile, batch), heads fastest, so that the blocks of one
+// tile start together in every head (measured faster than tiles fastest:
+// 17 % in dq, 3 % in dk/dv at B=1, H=32, S=4096, causal).
+template <typename Mask>
+int launch_dq(const Params& p, int batch, int dtype, cudaStream_t s) {
+  const dim3 f32_grid(p.heads, ceil_div(p.sq, kF32Tile), batch);
+  const dim3 grid(p.heads, ceil_div(p.sq, kMmaTile), batch);
+  switch (dtype) {
+    case 0:
+      return launch(flash_dq_f32_kernel<Mask>, p, f32_grid, kF32Threads,
+                    dq_smem_f32(p.d), s);
+    case 1:
+      return launch(flash_dq_kernel<__half, Mask>, p, grid, kMmaThreads,
+                    dq_smem_mma(p.d), s);
+    case 2:
+      return launch(flash_dq_kernel<__nv_bfloat16, Mask>, p, grid,
+                    kMmaThreads, dq_smem_mma(p.d), s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+template <typename Mask>
+int launch_dkv(const Params& p, int batch, int dtype, cudaStream_t s) {
+  const int kv_heads = p.heads / p.rep;
+  const dim3 f32_grid(kv_heads, ceil_div(p.sk, kF32Tile), batch);
+  const dim3 grid(kv_heads, ceil_div(p.sk, kDkvWarps * 16), batch);
+  switch (dtype) {
+    case 0:
+      return launch(flash_dkv_f32_kernel<Mask>, p, f32_grid, kF32Threads,
+                    dkv_smem_f32(p.d), s);
+    case 1:
+      return launch(flash_dkv_kernel<__half, Mask>, p, grid, kDkvWarps * 32,
+                    dkv_smem_mma(p.d), s);
+    case 2:
+      return launch(flash_dkv_kernel<__nv_bfloat16, Mask>, p, grid,
+                    kDkvWarps * 32, dkv_smem_mma(p.d), s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 }  // namespace flash
 
@@ -548,9 +605,11 @@ const char* flash_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q, o, dout, dq (B, H, Sq, D); k, v, dk, dv (B, Hkv, Sk, D); lse
-// (B, H, Sq) f32 contiguous.  strides: 24 int64 as in flash::set_strides.
-// Each returns cudaGetLastError() after its launch (0 = launched).
+// Each entry point returns cudaGetLastError() after its launch (0 =
+// launched).  strides: 24 int64 as in flash::set_strides.
+
+// Dense: q, o, dout, dq (B, H, Sq, D); k, v, dk, dv (B, Hkv, Sk, D); lse
+// (B, H, Sq) f32 contiguous.
 int flash_dq(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, void* dq,
              const long long* strides, int batch, int heads, int kv_heads,
@@ -561,22 +620,8 @@ int flash_dq(const void* q, const void* k, const void* v, const void* o,
   Params p = make_params(q, k, v, o, dout, lse, strides, heads, kv_heads, sq,
                          sk, d, causal, scale);
   p.dq = dq;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 f32_grid(ceil_div(sq, kF32Tile), heads, batch);
-  const dim3 grid(ceil_div(sq, kMmaTile), heads, batch);
-  switch (dtype) {
-    case 0:
-      return launch(flash_dq_f32_kernel, p, f32_grid, kF32Threads,
-                    dq_smem_f32(d), s);
-    case 1:
-      return launch(flash_dq_kernel<__half>, p, grid, kMmaThreads,
-                    dq_smem_mma(d), s);
-    case 2:
-      return launch(flash_dq_kernel<__nv_bfloat16>, p, grid, kMmaThreads,
-                    dq_smem_mma(d), s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return launch_dq<DenseMask>(p, batch, dtype,
+                              static_cast<cudaStream_t>(stream));
 }
 
 int flash_dkv(const void* q, const void* k, const void* v, const void* o,
@@ -590,22 +635,44 @@ int flash_dkv(const void* q, const void* k, const void* v, const void* o,
                          sk, d, causal, scale);
   p.dk = dk;
   p.dv = dv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 f32_grid(ceil_div(sk, kF32Tile), kv_heads, batch);
-  const dim3 grid(ceil_div(sk, kDkvWarps * 16), kv_heads, batch);
-  switch (dtype) {
-    case 0:
-      return launch(flash_dkv_f32_kernel, p, f32_grid, kF32Threads,
-                    dkv_smem_f32(d), s);
-    case 1:
-      return launch(flash_dkv_kernel<__half>, p, grid, kDkvWarps * 32,
-                    dkv_smem_mma(d), s);
-    case 2:
-      return launch(flash_dkv_kernel<__nv_bfloat16>, p, grid,
-                    kDkvWarps * 32, dkv_smem_mma(d), s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  return launch_dkv<DenseMask>(p, batch, dtype,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Packed sequences (batch 1, sq == sk == T): (H, T, D) and (Hkv, T, D)
+// views with batch stride 0, lse (H, T) f32 contiguous, span (2, T) int32:
+// the start and end of each token's segment.
+int varlen_dq(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, void* dq, const int* span,
+              const long long* strides, int batch, int heads, int kv_heads,
+              int sq, int sk, int d, int causal, float scale, int dtype,
+              void* stream) {
+  using namespace flash;
+  if (batch != 1 || sq != sk) return int(cudaErrorInvalidValue);
+  if (sq == 0) return 0;
+  Params p = make_params(q, k, v, o, dout, lse, strides, heads, kv_heads, sq,
+                         sk, d, causal, scale);
+  p.dq = dq;
+  p.span = span;
+  return launch_dq<SegmentMask>(p, 1, dtype,
+                                static_cast<cudaStream_t>(stream));
+}
+
+int varlen_dkv(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, void* dk, void* dv,
+               const int* span, const long long* strides, int batch,
+               int heads, int kv_heads, int sq, int sk, int d, int causal,
+               float scale, int dtype, void* stream) {
+  using namespace flash;
+  if (batch != 1 || sq != sk) return int(cudaErrorInvalidValue);
+  if (sk == 0) return 0;
+  Params p = make_params(q, k, v, o, dout, lse, strides, heads, kv_heads, sq,
+                         sk, d, causal, scale);
+  p.dk = dk;
+  p.dv = dv;
+  p.span = span;
+  return launch_dkv<SegmentMask>(p, 1, dtype,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,12 +1,19 @@
 // Flash attention, forward, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel paddle_tpu/ops/pallas/attention.py `_fwd_kernel`,
-// reached through `_flash_fwd`.
+// Replaces three TPU kernels of paddle_tpu/ops/pallas/attention.py, one
+// entry point each, one kernel templated on the mask policy
+// (flash_common.cuh):
+// - `flash_fwd`  (DenseMask):   `_fwd_kernel`, reached through `_flash_fwd`;
+// - `varlen_fwd` (SegmentMask): `_varlen_fwd_kernel`, through
+//   `_varlen_flash_fwd` (packed sequences, `flash_attn_unpadded`);
+// - `ragged_fwd` (LengthMask):  `_ragged_fwd_kernel`, through
+//   `flash_attention_ragged_bhsd` (per-sequence key counts; no lse).
 //
 // What it computes, for each batch b, query head h (kv head h / rep) and
 // query row i:
-//   s_ij   = scale * q_i . k_j   over the visible keys j (all keys, or
-//            j <= i when causal; causal needs S_q == S_k)
+//   s_ij   = scale * q_i . k_j   over the keys j the mask lets i see (all
+//            keys, or j <= i when causal; the keys of i's own segment; the
+//            first kv_lens[b] keys)
 //   out_i  = sum_j softmax(s_i)_j v_j   (in the input type)
 //   lse_i  = log sum_j exp(s_ij)        (f32)
 // with an f32 running max and denominator (online softmax).  Probabilities
@@ -15,21 +22,26 @@
 // to 0, so a row with no visible key gives out 0 and lse -1e30, never NaN.
 // Any S: the ragged last tile is zero-padded and masked.
 //
-// Bound: arithmetic.  At B=1, H=32, S=4096, D=128, causal, bf16 the two
-// products are 137 GFLOP against ~134 MB of q/k/v/o traffic, far above the
-// ~295 FLOP per byte where the H100's tensor cores become the limit.  So
-// the 16-bit kernel keeps everything but the operand tiles in registers:
-// one block of eight warps per (128-row query tile, head, batch) loops
-// over 64-key tiles (the TPU's sequential `ik` grid axis becomes this
-// loop) and skips the tiles wholly above the diagonal.  Each warp holds
-// its 16 rows' scores (16 x 64), running max and sum, and output
-// accumulator (16 x D) in registers; the scores become the PV product's
-// operand in place (mma.sync m16n8k16, bf16/fp16 in, f32 out), so only Q,
-// K and V pass through shared memory.  The blocks with the most key tiles
-// are launched first.  K/V tiles arrive by cp.async, all of a tile's
-// copies in flight at once.  Probabilities are 2^(scores in log2 units -
-// max): one FMA and one MUFU.EX2 each; tiles wholly inside the pattern
-// skip the mask.
+// Bound: arithmetic at the dense training shape.  At B=1, H=32, S=4096,
+// D=128, causal, bf16 the two products are 137 GFLOP against ~134 MB of
+// q/k/v/o traffic, far above the ~295 FLOP per byte where the H100's
+// tensor cores become the limit.  (Packed into six documents, or cut by
+// ragged lengths, the pairs shrink fourfold and the bytes set the bound;
+// the design is the same.)  So the 16-bit kernel keeps everything but
+// the operand tiles in registers: one block of eight warps per (128-row
+// query tile, head, batch) loops over 64-key tiles (the TPU's sequential
+// `ik` grid axis becomes this loop) over the key range its mask policy
+// gives (the tiles up to the diagonal, of the tile's own documents, or
+// below the length), where the TPU grid visits every key block and masks
+// it.  Each warp holds its 16 rows' scores (16 x 64), running max and sum,
+// and output accumulator (16 x D) in registers; the scores become the PV
+// product's operand in place (mma.sync m16n8k16, bf16/fp16 in, f32 out),
+// so only Q, K and V pass through shared memory.  Blocks of one query
+// tile start together across the heads, the dense causal pattern's
+// longest first (`launch`).  K/V tiles arrive by cp.async, all of a
+// tile's copies in flight at once.  Probabilities are 2^(scores in log2
+// units - max): one FMA and one MUFU.EX2 each; tiles wholly inside the
+// pattern skip the mask.
 // float32 inputs take a kernel of plain f32 FMA out of shared memory (no
 // TF32), for exact agreement with the plain version.  Double-buffered K/V
 // tiles measured slower (fewer warps an SM); wgmma, TMA and warp
@@ -58,6 +70,7 @@ size_t fwd_smem_mma(int d) {
          + 2 * round128(size_t(kMmaTile) * (d + 8) * 2);
 }
 
+template <typename Mask>
 __global__ void __launch_bounds__(kF32Threads)
     flash_fwd_f32_kernel(Params p) {
   constexpr int BQ = kF32Tile, BK = kF32Tile, kWarps = kF32Threads / 32;
@@ -75,8 +88,8 @@ __global__ void __launch_bounds__(kF32Threads)
   float* l_s = cv.take<float>(BQ);
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int iq = gridDim.x - 1 - blockIdx.x;  // most key tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.rep;
+  const int iq = gridDim.y - 1 - blockIdx.y;  // see launch()
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / p.rep;
   const int q0 = iq * BQ;
   const float* qg =
       static_cast<const float*>(p.q) + b * p.q_st.b + h * p.q_st.h;
@@ -91,8 +104,9 @@ __global__ void __launch_bounds__(kF32Threads)
     m_s[i] = kBigNeg;
     l_s[i] = 0.f;
   }
-  const int k_end = p.causal ? min(p.sk, q0 + BQ) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  const Mask mask(p, b);
+  const Range loop = mask.key_loop(q0, BQ);
+  for (int k0 = loop.lo; k0 < loop.hi; k0 += BK) {
     await_tiles();
     __syncthreads();  // the previous tile's readers of ks/vs are done
     load_tile<kF32Threads>(ks, ldt, kg, p.k_st.s, k0, p.sk, BK, d);
@@ -105,7 +119,7 @@ __global__ void __launch_bounds__(kF32Threads)
     for (int r = warp; r < BQ; r += kWarps) {
       const int qi = q0 + r;
       const float m_old = m_s[r];
-      const bool ok = visible(qi, k0 + lane, p.sq, p.sk, p.causal);
+      const bool ok = inside(mask.keys(qi), k0 + lane);
       const float sv = ok ? ss[r * lds + lane] * p.scale : kBigNeg;
       const float m_new = fmaxf(m_old, warp_max(sv));
       const float pj = ok ? expf(sv - m_new) : 0.f;
@@ -129,6 +143,7 @@ __global__ void __launch_bounds__(kF32Threads)
     const float l = l_s[r];
     og[qi * p.o_st.s + c] = l > 0.f ? os[r * ldo + c] / l : 0.f;
   }
+  if (p.lse == nullptr) return;
   float* lse = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
   for (int r = threadIdx.x; r < BQ; r += kF32Threads) {
     const int qi = q0 + r;
@@ -137,7 +152,7 @@ __global__ void __launch_bounds__(kF32Threads)
   }
 }
 
-template <typename T>
+template <typename T, typename Mask>
 __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_kernel(Params p) {
   constexpr int BQ = kFwdWarps * 16, BK = kMmaTile, NT = kFwdWarps * 32;
   const int d = p.d, ld = d + pad<T>();
@@ -150,8 +165,8 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_kernel(Params p) {
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int iq = gridDim.x - 1 - blockIdx.x;  // most key tiles first
-  const int h = blockIdx.y, b = blockIdx.z, hk = h / p.rep;
+  const int iq = gridDim.y - 1 - blockIdx.y;  // see launch()
+  const int h = blockIdx.x, b = blockIdx.z, hk = h / p.rep;
   const int q0 = iq * BQ;
   const T* qg = static_cast<const T*>(p.q) + b * p.q_st.b + h * p.q_st.h;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_st.b + hk * p.k_st.h;
@@ -167,8 +182,11 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_kernel(Params p) {
   float m0 = kBigNeg, m1 = kBigNeg, l0 = 0.f, l1 = 0.f;
   const float scale2 = p.scale * kLog2e;
 
-  const int k_end = p.causal ? min(p.sk, q0 + BQ) : p.sk;
-  for (int k0 = 0; k0 < k_end; k0 += BK) {
+  // the keys each of the two rows sees, and the key tiles the block visits
+  const Mask mask(p, b);
+  const Range kr0 = mask.keys(row0), kr1 = mask.keys(row1);
+  const Range loop = mask.key_loop(q0, BQ);
+  for (int k0 = loop.lo; k0 < loop.hi; k0 += BK) {
     __syncthreads();  // the previous tile's readers of ks/vs are done
     load_tile<NT>(ks, ld, kg, p.k_st.s, k0, p.sk, BK, d);
     load_tile<NT>(vs, ld, vg, p.v_st.s, k0, p.sk, BK, d);
@@ -194,17 +212,15 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_kernel(Params p) {
     }
     // scores in log2 units, masked outside the pattern; the rows' new max
     // across the 4 lanes that hold a row
-    const bool full = tile_visible(q0, k0, BQ, BK, p.sq, p.sk, p.causal);
+    const bool full = mask.tile_full(q0, BQ, k0, BK);
     float mx0 = kBigNeg, mx1 = kBigNeg;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kj = k0 + j * 8 + 2 * t + (e & 1);
-        s[j][e] = full || visible(e < 2 ? row0 : row1, kj, p.sq, p.sk,
-                                  p.causal)
-                      ? s[j][e] * scale2
-                      : kBigNeg;
+        s[j][e] = full || inside(e < 2 ? kr0 : kr1, kj) ? s[j][e] * scale2
+                                                         : kBigNeg;
       }
       mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
       mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
@@ -274,6 +290,7 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_kernel(Params p) {
             l1 > 0.f ? o[j][2] / l1 : 0.f, l1 > 0.f ? o[j][3] / l1 : 0.f);
     }
   }
+  if (p.lse == nullptr) return;
   float* lse = p.lse + (static_cast<long long>(b) * p.heads + h) * p.sq;
   if (t == 0) {
     if (row0 < p.sq) lse[row0] = l0 > 0.f ? m0 * kLn2 + logf(l0) : kBigNeg;
@@ -281,14 +298,56 @@ __global__ void __launch_bounds__(kFwdWarps * 32) flash_fwd_kernel(Params p) {
   }
 }
 
+// The grid is (head, query tile, batch), heads fastest, so that the blocks
+// of one query tile start together in every head, and the kernels take the
+// tiles in reverse (the dense causal pattern's longest first): measured
+// 23 % faster than query tiles fastest at B=1, H=32, S=4096, causal.
 template <typename K>
 int launch(K kernel, const Params& p, int tile, int threads, size_t smem,
            int batch, cudaStream_t stream) {
   int e = allow_smem(kernel, smem);
   if (e) return e;
-  kernel<<<dim3((p.sq + tile - 1) / tile, p.heads, batch), threads, smem,
+  kernel<<<dim3(p.heads, (p.sq + tile - 1) / tile, batch), threads, smem,
            stream>>>(p);
   return int(cudaGetLastError());
+}
+
+template <typename Mask>
+int launch_fwd(const Params& p, int batch, int dtype, cudaStream_t s) {
+  switch (dtype) {
+    case 0:
+      return launch(flash_fwd_f32_kernel<Mask>, p, kF32Tile, kF32Threads,
+                    fwd_smem_f32(p.d), batch, s);
+    case 1:
+      return launch(flash_fwd_kernel<__half, Mask>, p, kFwdWarps * 16,
+                    kFwdWarps * 32, fwd_smem_mma(p.d), batch, s);
+    case 2:
+      return launch(flash_fwd_kernel<__nv_bfloat16, Mask>, p, kFwdWarps * 16,
+                    kFwdWarps * 32, fwd_smem_mma(p.d), batch, s);
+    default:
+      return int(cudaErrorInvalidValue);
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v, void* out,
+                   float* lse, const long long* strides, int heads,
+                   int kv_heads, int sq, int sk, int d, int causal,
+                   float scale) {
+  Params p{};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.out = out;
+  p.lse = lse;
+  set_strides(p, strides);
+  p.heads = heads;
+  p.rep = heads / kv_heads;
+  p.sq = sq;
+  p.sk = sk;
+  p.d = d;
+  p.causal = causal;
+  p.scale = scale;
+  return p;
 }
 
 }  // namespace
@@ -307,43 +366,55 @@ const char* flash_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// q (B, H, Sq, D), k/v (B, Hkv, Sk, D), out like q, lse (B, H, Sq) f32
-// contiguous.  strides: 24 int64 as in flash::set_strides (q, k, v and o
-// are read).  Returns cudaGetLastError() after the launch (0 = launched).
+// Each entry point returns cudaGetLastError() after its launch (0 =
+// launched).  strides: 24 int64 as in flash::set_strides (q, k, v and o
+// are read).
+
+// Dense: q (B, H, Sq, D), k/v (B, Hkv, Sk, D), out like q, lse (B, H, Sq)
+// f32 contiguous.
 int flash_fwd(const void* q, const void* k, const void* v, void* out,
               float* lse, const long long* strides, int batch, int heads,
               int kv_heads, int sq, int sk, int d, int causal, float scale,
               int dtype, void* stream) {
   using namespace flash;
   if (batch == 0 || sq == 0) return 0;
-  Params p{};
-  p.q = q;
-  p.k = k;
-  p.v = v;
-  p.out = out;
-  p.lse = lse;
-  set_strides(p, strides);
-  p.heads = heads;
-  p.rep = heads / kv_heads;
-  p.sq = sq;
-  p.sk = sk;
-  p.d = d;
-  p.causal = causal;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0:
-      return launch(flash_fwd_f32_kernel, p, kF32Tile, kF32Threads,
-                    fwd_smem_f32(d), batch, s);
-    case 1:
-      return launch(flash_fwd_kernel<__half>, p, kFwdWarps * 16,
-                    kFwdWarps * 32, fwd_smem_mma(d), batch, s);
-    case 2:
-      return launch(flash_fwd_kernel<__nv_bfloat16>, p, kFwdWarps * 16,
-                    kFwdWarps * 32, fwd_smem_mma(d), batch, s);
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  const Params p = make_params(q, k, v, out, lse, strides, heads, kv_heads,
+                               sq, sk, d, causal, scale);
+  return launch_fwd<DenseMask>(p, batch, dtype,
+                               static_cast<cudaStream_t>(stream));
+}
+
+// Packed sequences (batch 1, sq == sk == T): q (H, T, D), k/v (Hkv, T, D)
+// as views with batch stride 0, out like q, lse (H, T) f32 contiguous,
+// span (2, T) int32: the start and end of each token's segment.
+int varlen_fwd(const void* q, const void* k, const void* v, void* out,
+               float* lse, const int* span, const long long* strides,
+               int batch, int heads, int kv_heads, int sq, int sk, int d,
+               int causal, float scale, int dtype, void* stream) {
+  using namespace flash;
+  if (batch != 1 || sq != sk) return int(cudaErrorInvalidValue);
+  if (sq == 0) return 0;
+  Params p = make_params(q, k, v, out, lse, strides, heads, kv_heads, sq,
+                         sk, d, causal, scale);
+  p.span = span;
+  return launch_fwd<SegmentMask>(p, 1, dtype,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// Ragged lengths: q (B, H, Sq, D), k/v (B, H, Sk, D) (kv_heads == heads),
+// out like q, kv_lens (B,) int32; no lse.
+int ragged_fwd(const void* q, const void* k, const void* v, void* out,
+               const int* kv_lens, const long long* strides, int batch,
+               int heads, int kv_heads, int sq, int sk, int d, int causal,
+               float scale, int dtype, void* stream) {
+  using namespace flash;
+  if (kv_heads != heads) return int(cudaErrorInvalidValue);
+  if (batch == 0 || sq == 0) return 0;
+  Params p = make_params(q, k, v, out, nullptr, strides, heads, kv_heads,
+                         sq, sk, d, causal, scale);
+  p.kv_lens = kv_lens;
+  return launch_fwd<LengthMask>(p, batch, dtype,
+                                static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.nn.functional import scaled_dot_product_attention
+from paddle_tpu_torch.nn.functional import (flash_attn_unpadded,
+                                            scaled_dot_product_attention)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.attention import (
     LAUNCH_COUNTS, ragged_paged_attention_decode,
@@ -265,4 +266,104 @@ def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
         quant_matmul(x, qw, s, bits=4, group=grp)
     with pytest.raises(ValueError, match="contiguous"):
         quant_matmul(x, qw.t().contiguous().t(), s, bits=8, group=grp)
+    assert LAUNCH_COUNTS == before
+
+
+# packed-sequence (varlen) kernels vs plain versions: the dense kernels'
+# tolerances (flash_close).  The cases hold a one-token document, a tail
+# past cu[-1] (a segment of its own), T not a multiple of 64, GQA.
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,hkv,t,d,causal,cu", [
+    (torch.bfloat16, 8, 8, 1000, 128, True, [0, 300, 301, 700, 1000]),
+    (torch.bfloat16, 8, 2, 777, 64, False, [0, 100, 400]),
+    (torch.float16, 4, 4, 130, 64, True, [0, 1, 2, 3, 130]),
+    (torch.float32, 4, 2, 200, 64, True, [0, 50, 120, 200]),
+    (torch.float32, 4, 4, 97, 16, False, [0, 10, 97]),
+], ids=["bf16_causal_one_token_doc", "bf16_gqa_full_tail",
+        "f16_single_tokens", "f32_gqa", "f32_full_d16"])
+def test_varlen_kernels_match_plain_versions(cuda_device, dtype, h, hkv, t,
+                                             d, causal, cu):
+    q, k, v, do = (x[0] for x in flash_inputs(cuda_device, dtype, 1, h, hkv,
+                                              t, d))
+    cu = torch.tensor(cu, dtype=torch.int32, device=cuda_device)
+    before = dict(LAUNCH_COUNTS)
+    out, lse = fa.varlen_flash_fwd(q, k, v, cu, causal)
+    ro, rl = fa.varlen_flash_fwd_ref(q, k, v, cu, causal)
+    dq = fa.varlen_flash_dq(q, k, v, cu, ro, rl, do, causal)
+    dk, dv = fa.varlen_flash_dkv(q, k, v, cu, ro, rl, do, causal)
+    torch.cuda.synchronize()
+    assert {n: LAUNCH_COUNTS[n] - before[n] for n in
+            ("varlen_fwd", "varlen_dq", "varlen_dkv", "flash_fwd")} == \
+        {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkv": 1, "flash_fwd": 0}
+    flash_close(out, ro, dtype)
+    torch.testing.assert_close(lse, rl, atol=1e-5, rtol=1e-5)
+    flash_close(dq, fa.varlen_flash_dq_ref(q, k, v, cu, ro, rl, do, causal),
+                dtype)
+    rk, rv = fa.varlen_flash_dkv_ref(q, k, v, cu, ro, rl, do, causal)
+    flash_close(dk, rk, dtype)
+    flash_close(dv, rv, dtype)
+    assert dk.shape == k.shape and dv.shape == v.shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,h,sq,sk,d,causal,lens", [
+    (torch.bfloat16, 4, 4, 300, 300, 128, True, [300, 299, 1, 0]),
+    (torch.float16, 3, 2, 200, 200, 64, True, [64, 130, 7]),
+    (torch.float32, 3, 4, 100, 130, 64, False, [130, 64, 0]),
+], ids=["bf16_causal", "f16_causal_d64", "f32_full_rect"])
+def test_ragged_kernel_matches_plain_version(cuda_device, dtype, b, h, sq,
+                                             sk, d, causal, lens):
+    rng = np.random.default_rng(1)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, s, d))
+                                .astype(np.float32)).to(cuda_device, dtype)
+               for s in (sq, sk, sk))
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    before = LAUNCH_COUNTS["ragged_fwd"]
+    got = fa.flash_attention_ragged_bhsd(q, k, v, kv_lens, causal)
+    want = fa.flash_attention_ragged_bhsd_ref(q, k, v, kv_lens, causal)
+    torch.cuda.synchronize()
+    assert LAUNCH_COUNTS["ragged_fwd"] == before + 1
+    flash_close(got, want, dtype)
+    for i, n in enumerate(lens):
+        # a length of 0 gives zeros; rows past a length > 0 do not
+        assert bool((got[i] == 0).all()) == (n == 0)
+
+
+@pytest.mark.gpu
+def test_flash_attn_unpadded_on_the_card_always_launches_varlen_kernels(
+        cuda_device):
+    """A 48-token pack of three documents: forward and backward through
+    the varlen kernels (no length gate), never the plain path."""
+    q, k, v, do = (x[0].transpose(0, 1).contiguous().requires_grad_()
+                   for x in flash_inputs(cuda_device, torch.bfloat16, 1, 4,
+                                         2, 48, 64))
+    cu = torch.tensor([0, 5, 30, 48], dtype=torch.int32, device=cuda_device)
+    before = dict(LAUNCH_COUNTS)
+    out, _ = flash_attn_unpadded(q, k, v, cu, cu, 25, 25, 0.125,
+                                 causal=True)
+    out.backward(do.detach())
+    torch.cuda.synchronize()
+    assert {n: LAUNCH_COUNTS[n] - before[n] for n in
+            ("varlen_fwd", "varlen_dq", "varlen_dkv")} == \
+        {"varlen_fwd": 1, "varlen_dq": 1, "varlen_dkv": 1}
+    assert out.shape == q.shape and k.grad.shape == k.shape
+
+
+@pytest.mark.gpu
+def test_varlen_and_ragged_kernels_refuse_what_they_cannot_take(cuda_device):
+    q, k, v, _ = (x[0] for x in flash_inputs(cuda_device, torch.float32, 1,
+                                             4, 2, 16, 64))
+    cu = torch.tensor([0, 16], dtype=torch.int32, device=cuda_device)
+    before = dict(LAUNCH_COUNTS)
+    with pytest.raises(ValueError, match="one device"):
+        fa.varlen_flash_fwd(q, k, v, cu.cpu())
+    with pytest.raises(ValueError, match="same T"):
+        fa.varlen_flash_fwd(q, k[:, :8], v[:, :8], cu)
+    with pytest.raises(ValueError, match="1-D int32/int64"):
+        fa.varlen_flash_fwd(q, k, v, cu.float())
+    lens = torch.tensor([16], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head count"):
+        fa.flash_attention_ragged_bhsd(q[None], k[None], v[None], lens)
+    with pytest.raises(ValueError, match="shape"):
+        fa.flash_attention_ragged_bhsd(q[None], q[None], q[None], lens[:0])
     assert LAUNCH_COUNTS == before
