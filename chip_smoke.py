@@ -8,7 +8,9 @@ and prints no result line):
 
 1. device — the card's name, count, and ``nvidia-smi`` name/power limit;
 2. build  — nvcc compiles every kernel source of the package (sm_90a), one
-   process per source, all started together;
+   process per source, all started together, and reports ptxas's
+   registers and spills of each kernel and the wgmma (HGMMA) and TMA-load
+   (UTMALDG) instructions of the backward's library;
 3. kernel — each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, plus edge cases; kernel, plain and
    library times with CUDA events (L2 flushed between launches) and the
@@ -52,14 +54,19 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 SEED = 0
+# time_ms's device spin before each timed call: about 1 ms at the H100's
+# 1.98 GHz boost clock
+SPIN_CYCLES = 2_000_000
 # Tolerances of kernel vs plain version (same inputs, both f32 inside):
 # float32 differs only by summation order (~1e-6 at these lengths);
 # float16/bfloat16 outputs are rounded once from f32, so two f32 results a
@@ -133,9 +140,12 @@ def peak_bw(name: str):
 
 def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     """Median device time of one call: CUDA events around each call, a
-    384 MB write between calls so every call finds the 50 MB L2 cold.  The
-    write keeps the card busy for about 0.1 ms, longer than a wrapper takes
-    to enqueue its launches, so the host's time is not counted."""
+    384 MB write between calls so every call finds the 50 MB L2 cold, then
+    a device spin of about 1 ms (``torch.cuda._sleep``), during which the
+    host enqueues the call's launches: its argument checks, small index
+    ops (e.g. the varlen span) and ctypes calls then fall outside the
+    timed window.  (Without the spin, a varlen wrapper's host work
+    outlasted the write and its idle gaps were timed as kernel time.)"""
     flush = torch.empty(384 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -143,11 +153,56 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     for i in range(iters):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         starts[i].record()
         fn()
         ends[i].record()
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in zip(starts, ends)]))
+
+
+# -- phase 2: the build's report ------------------------------------------
+
+def build_report(lib: str, info: dict) -> None:
+    """ptxas's registers and spill bytes of each kernel of a library; for
+    libflash_bwd also the wgmma (HGMMA) and TMA-load (UTMALDG) instructions
+    in its SASS, which show that its 16-bit D 64/128 kernels are the
+    warp-specialised ones."""
+    from paddle_tpu_torch.ops.cuda import _build
+    tools = Path(_build._nvcc()).parent
+    kernel, rows = None, {}
+    for line in info["ptxas"].splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel:
+            rows.setdefault(kernel, {})["spill"] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.setdefault(kernel, {})["regs"] = int(m.group(1))
+    mangled = sorted(rows)
+    names = subprocess.run([str(tools / "cu++filt")],
+                           input="\n".join(mangled), capture_output=True,
+                           text=True, timeout=60, check=True).stdout
+    names = names.splitlines()
+    for kernel, name in zip(mangled, names):
+        r = rows[kernel]
+        log(f"  {lib}: {name}: {r.get('regs')} registers, "
+            f"{r.get('spill', 0)} bytes spill stores")
+    if lib == "flash_bwd":
+        sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
+                               info["path"]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts = {op: len(re.findall(op, sass)) for op in ("HGMMA", "UTMALDG")}
+        spills = sum(r.get("spill", 0) for k, r in rows.items()
+                     if "_ws_" in k)
+        log(f"  {lib}: SASS holds {counts['HGMMA']} HGMMA (wgmma) and "
+            f"{counts['UTMALDG']} UTMALDG (TMA tile load) instructions; the "
+            f"wgmma kernels spill {spills} bytes")
+        if not counts["HGMMA"] or not counts["UTMALDG"]:
+            raise AssertionError("libflash_bwd has no wgmma or no TMA load")
 
 
 # -- phase 3: kernels vs plain ----------------------------------------------
@@ -261,14 +316,17 @@ def phase_kernel(card, bw):
             "library_ms": library_ms}
 
 
-def flash_inputs(batch, heads, kv_heads, s, d, dtype, seed):
-    """q, k, v, dO (B, H, S, D) from a seeded generator on the card."""
+def flash_inputs(batch, heads, kv_heads, s, d, dtype, seed, sk=None):
+    """q, k, v, dO (B, H, S, D) from a seeded generator on the card (k and
+    v with Sk = sk rows when given)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
-    def make(h):
-        return torch.randn(batch, h, s, d, generator=g,
+    def make(h, n):
+        return torch.randn(batch, h, n, d, generator=g,
                            device="cuda").to(dtype)
-    return make(heads), make(kv_heads), make(kv_heads), make(heads)
+    sk = s if sk is None else sk
+    return (make(heads, s), make(kv_heads, sk), make(kv_heads, sk),
+            make(heads, s))
 
 
 def flash_compare(name, got, want, dtype):
@@ -293,14 +351,18 @@ def flash_compare(name, got, want, dtype):
     return err.max().item()
 
 
-def flash_case(label, batch, heads, kv_heads, s, d, dtype, causal, seed):
+def flash_case(label, batch, heads, kv_heads, s, d, dtype, causal, sk=None,
+               *, seed):
     """Each flash kernel against its plain version on the same inputs (the
-    backward kernels from the plain forward's out and lse).  Returns the
-    inputs and the max abs error of each kernel."""
+    backward kernels from the plain forward's out and lse; each launches
+    the delta pre-pass itself, which is also held against its plain
+    version).  Returns the inputs and the max abs error of each kernel."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    q, k, v, do = flash_inputs(batch, heads, kv_heads, s, d, dtype, seed)
+    q, k, v, do = flash_inputs(batch, heads, kv_heads, s, d, dtype, seed, sk)
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal)
+    delta = fa.flash_bwd_delta(ro, do)
+    rd = fa.flash_bwd_delta_ref(ro, do)
     dq = fa.flash_attention_dq(q, k, v, ro, rl, do, causal)
     rq = fa.flash_attention_dq_ref(q, k, v, ro, rl, do, causal)
     dk, dv = fa.flash_attention_dkv(q, k, v, ro, rl, do, causal)
@@ -314,16 +376,21 @@ def flash_case(label, batch, heads, kv_heads, s, d, dtype, causal, seed):
                              lse_err.max().item()),
             "flash_dq": flash_compare(f"{label} dq", dq, rq, dtype),
             "flash_dkv": max(flash_compare(f"{label} dk", dk, rk, dtype),
-                             flash_compare(f"{label} dv", dv, rv, dtype))}
+                             flash_compare(f"{label} dv", dv, rv, dtype)),
+            # f32 on both sides, summed in another order
+            "flash_bwd_delta": flash_compare(f"{label} delta", delta, rd,
+                                             torch.float32)}
     rel = {n: ((a.float() - b.float()).norm()
                / b.float().norm().clamp_min(1e-30)).item()
            for n, a, b in (("out", out, ro), ("dq", dq, rq), ("dk", dk, rk),
                            ("dv", dv, rv))}
-    log(f"  {label}: B={batch} H={heads} Hkv={kv_heads} S={s} D={d} "
+    log(f"  {label}: B={batch} H={heads} Hkv={kv_heads} "
+        f"S={s if sk is None else f'{s}/{sk}'} D={d} "
         f"{str(dtype).replace('torch.', '')} "
         f"{'causal' if causal else 'full'}; max abs err fwd "
         f"{errs['flash_fwd']:.3e} dq {errs['flash_dq']:.3e} dkv "
-        f"{errs['flash_dkv']:.3e}; rel L2 "
+        f"{errs['flash_dkv']:.3e} delta {errs['flash_bwd_delta']:.3e}; "
+        f"rel L2 "
         + " ".join(f"{n} {r:.2e}" for n, r in rel.items()))
     return (q, k, v, do, ro, rl), errs
 
@@ -340,10 +407,11 @@ def attn_bounds(b, h, hkv, sq, sk, d, el, pairs, dtype, bw, prefix):
     multiply-adds over the dense rate of the input type; the larger."""
     qo = b * h * sq * d * el            # q, out, dO or dq
     kv = b * hkv * sk * d * el          # k, v, dk or dv
-    lse = 4 * b * h * sq
+    lse = 4 * b * h * sq                # lse or delta
+    # the backward kernels read delta from the pre-pass, not the output
     work = {"fwd": (2, 2 * qo + 2 * kv + lse),          # QK, PV
-            "dq": (3, 4 * qo + 2 * kv + lse),           # + dO V, dS K
-            "dkv": (4, 3 * qo + 4 * kv + lse)}          # + P dO, dS Q
+            "dq": (3, 3 * qo + 2 * kv + 2 * lse),       # + dO V, dS K
+            "dkv": (4, 2 * qo + 4 * kv + 2 * lse)}      # + P dO, dS Q
     out = {}
     for name, (products, nbytes) in work.items():
         t_ops = 2 * products * b * h * pairs * d / PEAK_OPS[dtype] * 1e3
@@ -370,9 +438,15 @@ def phase_flash_kernels(card, bw):
         # the train phase's shape: B=1, H=32, S=4096, D=128, bf16, causal
         ("training shape", 1, 32, 32, 4096, 128, bf16, True),
         ("GQA 32q/8kv", 1, 32, 8, 2048, 128, bf16, True),
+        ("S=4000, partial last tiles of 64 and 128", 1, 8, 8, 4000, 128,
+         bf16, True),
         ("S=1000, ragged last tile", 2, 8, 8, 1000, 128, bf16, True),
+        ("non-causal Sq=1000 != Sk=1500", 1, 8, 8, 1000, 128, bf16, False,
+         1500),
         ("S=1", 2, 8, 2, 1, 128, f16, True),
         ("D=64", 2, 16, 16, 512, 64, bf16, True),
+        ("B=2 fp16 D=64", 2, 16, 16, 512, 64, f16, True),
+        ("D=96 (the mma.sync kernels)", 1, 8, 8, 333, 96, bf16, True),
         ("non-causal, ragged, GQA", 1, 16, 4, 777, 128, bf16, False),
         ("float16", 1, 16, 16, 1024, 128, f16, True),
         ("float32", 2, 8, 2, 300, 64, f32, True),
@@ -389,18 +463,23 @@ def phase_flash_kernels(card, bw):
             main = inputs
     q, k, v, do, out, lse = main
     causal = True
+    # each backward kernel alone, from the pre-pass's delta
+    delta = fa.flash_bwd_delta(out, do)
     ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v,
                                                               causal)),
           "flash_dq": time_ms(lambda: fa.flash_attention_dq(
-              q, k, v, out, lse, do, causal)),
+              q, k, v, out, lse, do, causal, delta=delta)),
           "flash_dkv": time_ms(lambda: fa.flash_attention_dkv(
-              q, k, v, out, lse, do, causal))}
+              q, k, v, out, lse, do, causal, delta=delta)),
+          "flash_bwd_delta": time_ms(lambda: fa.flash_bwd_delta(out, do))}
     plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd_ref(
                  q, k, v, causal), iters=5, warmup=1),
              "flash_dq": time_ms(lambda: fa.flash_attention_dq_ref(
                  q, k, v, out, lse, do, causal), iters=5, warmup=1),
              "flash_dkv": time_ms(lambda: fa.flash_attention_dkv_ref(
-                 q, k, v, out, lse, do, causal), iters=5, warmup=1)}
+                 q, k, v, out, lse, do, causal), iters=5, warmup=1),
+             "flash_bwd_delta": time_ms(lambda: fa.flash_bwd_delta_ref(
+                 out, do), iters=5, warmup=1)}
     # library yardstick, never on the path: SDPA forward, and forward +
     # backward (one backward computes dq, dk and dv together)
     lib_fwd = time_ms(lambda: tf.scaled_dot_product_attention(
@@ -412,28 +491,45 @@ def phase_flash_kernels(card, bw):
         torch.autograd.grad(o, (qg, kg, vg), do)
     lib_fwd_bwd = time_ms(sdpa_fwd_bwd)
     bounds = flash_bounds(q, k, causal, bw)
+    bounds["flash_bwd_delta"] = delta_bound(out, bw)
     log(f"  timing at the training shape ({card}), ms: " + "; ".join(
         f"{n} kernel {ms[n]:.4f} plain {plain[n]:.4f} bound "
         f"{bounds[n][0]:.4f} ({bounds[n][1]})" for n in ms))
+    bwd = ms["flash_dq"] + ms["flash_dkv"] + ms["flash_bwd_delta"]
+    sdpa_bwd = lib_fwd_bwd - lib_fwd
     log(f"  library (never on the path): SDPA is_causal forward "
         f"{lib_fwd:.4f} ms, forward+backward {lib_fwd_bwd:.4f} ms "
-        f"(backward alone {lib_fwd_bwd - lib_fwd:.4f} ms, dq/dk/dv "
-        f"together); the three kernels together {sum(ms.values()):.4f} ms")
+        f"(backward alone {sdpa_bwd:.4f} ms, dq/dk/dv together); the "
+        f"backward's three kernels (delta, dq, dk/dv) together {bwd:.4f} ms "
+        f"= {bwd / sdpa_bwd:.2f} x SDPA's backward")
     src = {"flash_fwd": ("flash_fwd.cu", "paddle_tpu/ops/pallas/"
                                          "attention.py:99"),
            "flash_dq": ("flash_bwd.cu", "paddle_tpu/ops/pallas/"
                                         "attention.py:214"),
            "flash_dkv": ("flash_bwd.cu", "paddle_tpu/ops/pallas/"
-                                         "attention.py:262")}
+                                         "attention.py:262"),
+           # delta = rowsum(dO * O), which both TPU backward kernels
+           # recompute in every tile (`_dq_kernel`'s, then `_dkv_kernel`'s)
+           "flash_bwd_delta": ("flash_bwd.cu", "paddle_tpu/ops/pallas/"
+                                               "attention.py:235")}
     return [{"name": n, "route": "cuda",
              "source": f"paddle_tpu_torch/ops/cuda/csrc/{src[n][0]}",
              "replaces": src[n][1], "launches": None,
              "max_abs_err": errs[n], "ms": ms[n], "plain_ms": plain[n],
              "bound_ms": bounds[n][0], "bound_by": bounds[n][1],
              # SDPA's forward computes the forward's function; no single
-             # library call computes dq alone or dk/dv alone
+             # library call computes dq alone, dk/dv alone or delta
              "library_ms": lib_fwd if n == "flash_fwd" else None}
             for n in ms]
+
+
+def delta_bound(out, bw):
+    """Least time of the delta pre-pass: dO and O read once, delta (f32)
+    written once, or its multiply-adds at the f32 rate; the larger."""
+    rows = out.numel() // out.shape[-1]
+    t_bytes = (2 * out.numel() * out.element_size() + 4 * rows) / bw * 1e3
+    t_ops = 2 * out.numel() / PEAK_OPS[torch.float32] * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 # the packed-training shape: six documents of Llama-scale lengths packed
@@ -471,6 +567,9 @@ def varlen_case(label, heads, kv_heads, t, d, dtype, causal, cu, seed):
     cu = torch.tensor(cu, dtype=torch.int32, device="cuda")
     out, lse = fa.varlen_flash_fwd(q, k, v, cu, causal)
     ro, rl = fa.varlen_flash_fwd_ref(q, k, v, cu, causal)
+    # the pre-pass on the (H, T, D) view, f32 on both sides
+    flash_compare(f"{label} delta", fa.flash_bwd_delta(ro, do),
+                  fa.flash_bwd_delta_ref(ro, do), torch.float32)
     dq = fa.varlen_flash_dq(q, k, v, cu, ro, rl, do, causal)
     rq = fa.varlen_flash_dq_ref(q, k, v, cu, ro, rl, do, causal)
     dk, dv = fa.varlen_flash_dkv(q, k, v, cu, ro, rl, do, causal)
@@ -562,12 +661,14 @@ def phase_varlen_kernels(card, bw):
             main = inputs
     q, k, v, do, cu, out, lse = main
     causal = True
+    # each backward kernel alone, from the pre-pass's delta
+    delta = fa.flash_bwd_delta(out, do)
     ms = {"varlen_fwd": time_ms(lambda: fa.varlen_flash_fwd(q, k, v, cu,
                                                             causal)),
           "varlen_dq": time_ms(lambda: fa.varlen_flash_dq(
-              q, k, v, cu, out, lse, do, causal)),
+              q, k, v, cu, out, lse, do, causal, delta=delta)),
           "varlen_dkv": time_ms(lambda: fa.varlen_flash_dkv(
-              q, k, v, cu, out, lse, do, causal))}
+              q, k, v, cu, out, lse, do, causal, delta=delta))}
     plain = {"varlen_fwd": time_ms(lambda: fa.varlen_flash_fwd_ref(
                  q, k, v, cu, causal), iters=5, warmup=1),
              "varlen_dq": time_ms(lambda: fa.varlen_flash_dq_ref(
@@ -1142,15 +1243,16 @@ def phase_train(card, peak_ops):
         f"MFU {mfu:.4f} (bench_llama's formula at {peak_ops / 1e12:.0f} "
         f"TFLOP/s), peak memory {peak / 1e9:.2f} GB")
     expect = layers * (steps + 1)
+    flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
     log(f"  launches over the {steps + 1} steps: " + ", ".join(
-        f"{n} {launches[n]}" for n in ("flash_fwd", "flash_dq", "flash_dkv"))
+        f"{n} {launches[n]}" for n in flash)
         + f" (layers x steps = {expect})")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall on the repeated batch: "
                              f"{losses}")
-    for n in ("flash_fwd", "flash_dq", "flash_dkv"):
+    for n in flash:
         if launches[n] != expect:
             raise AssertionError(f"{n} launched {launches[n]} times, "
                                  f"expected {expect}")
@@ -1177,7 +1279,9 @@ def profile_train_step(step, card) -> None:
     log(f"  [{card}] profiled train step: {wall_ms:.1f} ms wall, device "
         f"busy {device_ms:.1f} ms ({device_ms / wall_ms:.1%}), "
         f"{sum(e.count for e in rows)} kernel launches")
-    for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
+    ranked = sorted(rows, key=lambda e: -e.self_device_time_total)
+    # the top twelve, then the port's own kernels below them
+    for e in ranked[:12] + [e for e in ranked[12:] if "flash::" in e.key]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
 
@@ -1240,9 +1344,10 @@ def phase_packed(card):
         f"calls)")
     log("  launches: " + ", ".join(
         f"{n} {launches[n]}" for n in ("varlen_fwd", "varlen_dq",
-                                       "varlen_dkv", "flash_fwd", "flash_dq",
+                                       "varlen_dkv", "flash_bwd_delta",
+                                       "flash_fwd", "flash_dq",
                                        "flash_dkv")))
-    for n in ("varlen_fwd", "varlen_dq", "varlen_dkv"):
+    for n in ("varlen_fwd", "varlen_dq", "varlen_dkv", "flash_bwd_delta"):
         if launches[n] != layers:
             raise AssertionError(f"{n} launched {launches[n]} times, "
                                  f"expected {layers}")
@@ -1542,9 +1647,7 @@ def main() -> int:
     built = _build.build()
     log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
     for kname, info in built.items():
-        for line in info["ptxas"].splitlines():
-            if "registers" in line or "smem" in line or "spill" in line:
-                log(f"  {kname}: {line.strip()}")
+        build_report(kname, info)
 
     log("[3/9] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
@@ -1561,6 +1664,7 @@ def main() -> int:
                    "flash_fwd": "train (phase 5)",
                    "flash_dq": "train (phase 5)",
                    "flash_dkv": "train (phase 5)",
+                   "flash_bwd_delta": "train (phase 5)",
                    "qmm_i8": "quantized serve (phase 8)",
                    "qmm_i4": "quantized serve (phase 8)",
                    "rpa_decode_quant": "quantized serve (phase 8)"}

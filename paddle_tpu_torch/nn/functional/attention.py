@@ -4,21 +4,38 @@
 Layouts follow the reference: q/k/v are ``(batch, seq, num_heads,
 head_dim)``; k/v may have fewer heads (grouped-query attention).
 
-Dispatch: attention with no mask and no dropout always takes
-``flash_sdpa``, a ``torch.autograd.Function`` over the flash kernels
-(``ops/cuda/flash_attention.py``): on CUDA tensors the CUDA kernels, on
-CPU tensors their plain versions, through the same Function.  The
-reference's ``_should_use_pallas`` gate (TPU only, seq >= 1024, the
-512/256/128 tile rule) is TPU tuning and is not ported: on the card it
-would quietly send training below seq 1024 to the plain path.  Masks and
-dropout take ``sdpa``, the plain math path.
+Dispatch: attention with no mask and no dropout takes ``flash_sdpa``, a
+``torch.autograd.Function`` over the flash kernels
+(``ops/cuda/flash_attention.py``: on CUDA tensors the CUDA kernels, on CPU
+tensors their plain versions, through the same Function), wherever the
+kernels take the call (``flash_refusal``): head_dim a multiple of 16 in
+16..128, Sq == Sk when causal, float32/float16/bfloat16.  A head_dim below
+128 that is not a multiple of 16 is zero-padded to the next one
+(``padded_head_dim``) and still takes the kernels.  The plain ``sdpa`` (its
+causal mask bottom-right aligned, ``tril(diagonal=Sk - Sq)``, as the
+reference's) takes every call with a mask or training dropout, and what
+the reference's own gate (``fallback_reason``) and dtypes send to its plain
+path: causal with Sq != Sk, head_dim above 256, dtypes other than the
+three.  A head_dim in 129..256, which the reference's kernel takes and no
+kernel here does yet, takes the plain path on CPU tensors and raises on
+CUDA tensors.  This is the port's ``_should_use_pallas`` minus the
+reference's TPU tuning (TPU only, seq >= 1024, the 512/256/128 tile rule),
+which on the card would quietly send training below seq 1024 to the plain
+path.
 
 Packed sequences (``flash_attn_unpadded``, ``(total_tokens, heads,
 head_dim)`` with ``cu_seqlens``) take ``_FlashVarlen``, the same kind of
 Function over the varlen kernels, at every length on every device (the
-reference's ``t < 1024`` gate and platform check are not ported either);
-training dropout and cross-attention packing (``cu_seqlens_q`` not equal
-to ``cu_seqlens_k``) take ``_varlen_core``, the plain dense math.
+reference's ``t < 1024`` gate and platform check are not ported either),
+behind the same gate; training dropout and cross-attention packing
+(``cu_seqlens_q`` not equal to ``cu_seqlens_k``) take ``_varlen_core``,
+the plain dense math, as the gate's refusals do.
+
+No route is silent: each call adds one to ``ROUTE_COUNTS`` under
+``"sdpa_flash"``, ``"varlen_flash"``, ``"<sdpa|varlen>_flash_padded"`` or
+``"<sdpa|varlen>_plain:<reason>"``, the reason one of ``dropout``,
+``mask``, ``packing``, ``head_dim``, ``causal_rect`` (causal with Sq !=
+Sk) and ``dtype``; ``reset_route_counts()`` clears it.
 """
 
 from __future__ import annotations
@@ -28,12 +45,60 @@ from typing import Optional
 
 import torch
 
-from ...ops.cuda.flash_attention import (flash_attention_bwd,
-                                         flash_attention_fwd, segment_ids,
+from ...ops.cuda.flash_attention import (MAX_HEAD_DIM, flash_attention_bwd,
+                                         flash_attention_fwd, flash_refusal,
+                                         padded_head_dim, segment_ids,
                                          varlen_flash_bwd, varlen_flash_fwd)
 
 __all__ = ["scaled_dot_product_attention", "flash_sdpa", "sdpa",
-           "flash_attention", "flash_attn_unpadded", "sdp_kernel"]
+           "flash_attention", "flash_attn_unpadded", "sdp_kernel",
+           "ROUTE_COUNTS", "reset_route_counts"]
+
+# the reference's fallback_reason sends larger head dims to its plain path
+_REFERENCE_MAX_HEAD_DIM = 256
+
+# One count per call: "<path>[:<reason>]", e.g. "sdpa_flash" or
+# "sdpa_plain:head_dim".  Where LAUNCH_COUNTS says which kernels ran, this
+# says which route a call took and why.
+ROUTE_COUNTS = {}
+
+
+def reset_route_counts() -> None:
+    ROUTE_COUNTS.clear()
+
+
+def _route(name: str) -> None:
+    ROUTE_COUNTS[name] = ROUTE_COUNTS.get(name, 0) + 1
+
+
+def _flash_gate(kind: str, query, key, causal: bool) -> Optional[int]:
+    """Count the route of a call with no mask and no dropout (``kind`` is
+    ``sdpa`` or ``varlen``; query/key (B, S, H, D) or packed (T, H, D)) and
+    return the head_dim at which it takes the flash kernels, or None for
+    the plain path.  Raises on a CUDA tensor whose head_dim the reference's
+    kernel takes and no kernel here does."""
+    d = query.shape[-1]
+    dp = padded_head_dim(d)
+    reason = flash_refusal(query.shape[-3], key.shape[-3], dp, query.dtype,
+                           causal)
+    if reason == "head_dim" and d <= _REFERENCE_MAX_HEAD_DIM \
+            and query.device.type != "cpu":
+        raise ValueError(
+            f"head_dim {d} is not supported on {query.device}: the flash "
+            f"kernels take up to {MAX_HEAD_DIM} and the plain path is for "
+            f"what the "
+            f"reference's kernel refuses (head_dim above "
+            f"{_REFERENCE_MAX_HEAD_DIM}) or for CPU tensors")
+    if reason is not None:
+        _route(f"{kind}_plain:{reason}")
+        return None
+    _route(f"{kind}_flash" if dp == d else f"{kind}_flash_padded")
+    return dp
+
+
+def _pad(x, dp: int):
+    d = x.shape[-1]
+    return x if dp == d else torch.nn.functional.pad(x, (0, dp - d))
 
 
 def _sdpa_probs(q, k, mask, scale: float, is_causal: bool):
@@ -123,17 +188,28 @@ def flash_sdpa(query, key, value, scale: float, is_causal: bool = False):
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True) -> torch.Tensor:
+                                 training: bool = True,
+                                 name=None) -> torch.Tensor:
     """q/k/v: (batch, seq, heads, head_dim).  No mask and no dropout:
-    ``flash_sdpa`` at every sequence length, on every device; otherwise the
-    plain ``sdpa``."""
-    scale = 1.0 / math.sqrt(query.shape[-1])
+    ``flash_sdpa`` at every sequence length, on every device, where the
+    kernels take the call, head_dim zero-padded to a multiple of 16
+    (``_flash_gate``); otherwise the plain ``sdpa``.  The route is counted
+    in ``ROUTE_COUNTS``."""
+    d = query.shape[-1]
+    scale = 1.0 / math.sqrt(d)
     if dropout_p > 0.0 and training:
+        _route("sdpa_plain:dropout")
         return sdpa(query, key, value, attn_mask, scale, is_causal,
                     dropout_p=float(dropout_p))
-    if attn_mask is None:
-        return flash_sdpa(query, key, value, scale, is_causal)[0]
-    return sdpa(query, key, value, attn_mask, scale, is_causal)
+    if attn_mask is not None:
+        _route("sdpa_plain:mask")
+        return sdpa(query, key, value, attn_mask, scale, is_causal)
+    dp = _flash_gate("sdpa", query, key, is_causal)
+    if dp is None:
+        return sdpa(query, key, value, None, scale, is_causal)
+    out = flash_sdpa(_pad(query, dp), _pad(key, dp), _pad(value, dp), scale,
+                     is_causal)[0]
+    return out if dp == d else out[..., :d]
 
 
 def flash_attention(query, key, value, dropout=0.0, causal=False,
@@ -230,18 +306,28 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     ``cu_seqlens_*`` (batch + 1,) int32 prefix sums.  Returns (out like
     query, None).  ``max_seqlen_*`` are not needed.
 
-    Training dropout, and q and k/v packed differently, take the plain
-    dense ``_varlen_core``; otherwise ``_FlashVarlen`` (the varlen kernels
-    on the card, their plain versions on the CPU)."""
+    Training dropout, q and k/v packed differently, and what the flash
+    gate refuses (``_flash_gate``) take the plain dense ``_varlen_core``;
+    otherwise ``_FlashVarlen`` (the varlen kernels on the card, their plain
+    versions on the CPU), head_dim zero-padded to a multiple of 16.  The
+    route is counted in ``ROUTE_COUNTS``."""
     if dropout and training:
+        _route("varlen_plain:dropout")
         return _varlen_core(query, key, value, cu_seqlens_q, cu_seqlens_k,
                             float(scale), bool(causal), float(dropout)), None
     if not _same_packing(query, key, cu_seqlens_q, cu_seqlens_k):
+        _route("varlen_plain:packing")
+        dp = None
+    else:
+        dp = _flash_gate("varlen", query, key, bool(causal))
+    if dp is None:
         return _varlen_core(query, key, value, cu_seqlens_q, cu_seqlens_k,
                             float(scale), bool(causal)), None
-    out, _ = _FlashVarlen.apply(query, key, value, cu_seqlens_q,
-                                float(scale), bool(causal))
-    return out, None
+    d = query.shape[-1]
+    out, _ = _FlashVarlen.apply(_pad(query, dp), _pad(key, dp),
+                                _pad(value, dp), cu_seqlens_q, float(scale),
+                                bool(causal))
+    return (out if dp == d else out[..., :d]), None
 
 
 class sdp_kernel:

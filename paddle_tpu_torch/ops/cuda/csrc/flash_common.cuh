@@ -9,8 +9,9 @@
 //   probabilities and accumulators live in the warp's registers, in the
 //   documented fragment layouts of the PTX ISA, and probabilities pass
 //   from the score accumulators to the next product's operand without
-//   leaving registers.  Only the operand tiles (Q, K, V, dO, and O for
-//   the backward's delta) are staged in shared memory.
+//   leaving registers.  Only the operand tiles (Q, K, V, dO) are staged in
+//   shared memory.  The backward at head_dim 64 and 128 has kernels of
+//   its own on wgmma and TMA (flash_bwd.cu, flash_sm90.cuh).
 // - float32 inputs: the same algorithm with plain f32 FMA out of shared
 //   memory (`block_mm_f32`), for exact agreement with the plain version
 //   (no TF32).
@@ -261,23 +262,16 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// lse and delta = rowsum(dO * O) (f32) for query rows [q0, q0 + R), one
-// warp per row, from the dO and O tiles in shared memory (row stride ld);
-// rows past sq get 0.
-template <int NT, typename T>
-__device__ void row_stats(float* lse_s, float* delta_s, const float* lse_g,
-                          const T* os, const T* dos, int ld, int q0, int sq,
-                          int R, int d) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = warp; r < R; r += NT / 32) {
-    float acc = 0.f;
-    for (int c = lane; c < d; c += 32)
-      acc += to_f32(dos[r * ld + c]) * to_f32(os[r * ld + c]);
-    acc = warp_sum(acc);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      lse_s[r] = q0 + r < sq ? lse_g[q0 + r] : 0.f;
-    }
+// lse and delta (f32, from the forward and the backward's pre-pass) of
+// query rows [q0, q0 + R) into shared memory; rows past sq get 0.
+template <int NT>
+__device__ void load_row_stats(float* lse_s, float* delta_s,
+                               const float* lse_g, const float* delta_g,
+                               int q0, int sq, int R) {
+  for (int r = threadIdx.x; r < R; r += NT) {
+    const bool ok = q0 + r < sq;
+    lse_s[r] = ok ? lse_g[q0 + r] : 0.f;
+    delta_s[r] = ok ? delta_g[q0 + r] : 0.f;
   }
 }
 
@@ -293,6 +287,7 @@ template <typename K> int allow_smem(K kernel, size_t smem) {
 struct Params {
   const void *q, *k, *v, *o, *dout;
   float* lse;  // written by the forward (if not null), read by the backward
+  const float* delta;  // the backward's rowsum(dO * O), (B, H, Sq) f32
   void *out, *dq, *dk, *dv;
   const int* span;     // SegmentMask: (2, T) start and end of i's segment
   const int* kv_lens;  // LengthMask: (B,) key count of each sequence

@@ -7,6 +7,10 @@ templated on its mask (``csrc/flash_common.cuh``):
 
 - dense: ``_flash_fwd`` (TPU kernel ``_fwd_kernel``) and ``_flash_bwd``
   (``_dq_kernel``, ``_dkv_kernel``), layout ``(B, H, S, D)``;
+- the backward's pre-pass ``flash_bwd_delta``: delta = rowsum(dO * O), f32,
+  which both TPU backward kernels recompute inside every tile; the
+  backward launches it once and hands it to its dq and dk/dv kernels
+  (``delta=``), which then read no O;
 - packed sequences (varlen): ``_varlen_flash_fwd`` (``_varlen_fwd_kernel``)
   and ``_varlen_flash_bwd`` (``_varlen_dq_kernel``,
   ``_varlen_dkv_kernel``), layout ``(H, T, D)`` with ``cu_seqlens``;
@@ -43,7 +47,9 @@ __all__ = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
            "varlen_flash_dkv", "varlen_flash_bwd", "varlen_flash_fwd_ref",
            "varlen_flash_dq_ref", "varlen_flash_dkv_ref",
            "varlen_flash_bwd_ref", "flash_attention_ragged_bhsd",
-           "flash_attention_ragged_bhsd_ref", "MAX_HEAD_DIM"]
+           "flash_attention_ragged_bhsd_ref", "flash_bwd_delta",
+           "flash_bwd_delta_ref", "flash_refusal", "padded_head_dim",
+           "MAX_HEAD_DIM"]
 
 # the kernels take D in 16-element steps (one mma.sync k-step, and two
 # n-tiles of 8 for each ldmatrix.x4), up to the 16 n-tiles a warp holds
@@ -53,11 +59,37 @@ _BIG_NEG = -1e30   # finite, as the kernels: masked scores, never -inf
 _MAX_SMEM_BYTES = 232448
 
 LAUNCH_COUNTS.update({"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0,
-                      "varlen_fwd": 0, "varlen_dq": 0, "varlen_dkv": 0,
-                      "ragged_fwd": 0})
+                      "flash_bwd_delta": 0, "varlen_fwd": 0, "varlen_dq": 0,
+                      "varlen_dkv": 0, "ragged_fwd": 0})
 
 
-def _check(q, k, v, causal, *, out=None, lse=None, do=None) -> None:
+def flash_refusal(seq_q: int, seq_k: int, head_dim: int, dtype,
+                  causal: bool = False) -> Optional[str]:
+    """Why the flash kernels cannot take a call, or None: the port's
+    counterpart of the reference's ``fallback_reason``.  In this order:
+    ``"causal_rect"`` (causal with Sq != Sk: the kernels' mask is the
+    square lower triangle), ``"dtype"`` (not float32, float16 or bfloat16)
+    and ``"head_dim"`` (not a multiple of 16 in 16..128).  The wrappers
+    raise on the reason; the attention functionals route on it."""
+    if causal and seq_q != seq_k:
+        return "causal_rect"
+    if dtype not in _DTYPE_CODES:
+        return "dtype"
+    if (head_dim % _HEAD_DIM_STEP
+            or not _HEAD_DIM_STEP <= head_dim <= MAX_HEAD_DIM):
+        return "head_dim"
+    return None
+
+
+def padded_head_dim(head_dim: int) -> int:
+    """The head_dim at which the flash kernels take ``head_dim`` once q, k
+    and v are zero-padded: the next multiple of 16 (zero columns add
+    nothing to q.k and give output columns that are cut off)."""
+    return -(-head_dim // _HEAD_DIM_STEP) * _HEAD_DIM_STEP
+
+
+def _check(q, k, v, causal, *, out=None, lse=None, do=None,
+           delta=None) -> None:
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(
             f"q must be (B, H, Sq, D) and k/v both (B, Hkv, Sk, D), got "
@@ -70,18 +102,19 @@ def _check(q, k, v, causal, *, out=None, lse=None, do=None) -> None:
     if h % hkv:
         raise ValueError(f"q heads ({h}) must be a multiple of kv heads "
                          f"({hkv})")
-    if d % _HEAD_DIM_STEP or not _HEAD_DIM_STEP <= d <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"head_dim {d} is not supported: the flash kernels take a "
-            f"multiple of {_HEAD_DIM_STEP} up to {MAX_HEAD_DIM}")
     if sq < 1 or sk < 1:
         raise ValueError(f"sequence lengths must be >= 1, got Sq={sq}, "
                          f"Sk={sk}")
-    if causal and sq != sk:
+    reason = flash_refusal(sq, sk, d, q.dtype, causal)
+    if reason == "head_dim":
+        raise ValueError(
+            f"head_dim {d} is not supported: the flash kernels take a "
+            f"multiple of {_HEAD_DIM_STEP} up to {MAX_HEAD_DIM}")
+    if reason == "causal_rect":
         raise ValueError(f"causal attention needs Sq == Sk (the mask is "
                          f"the square lower triangle), got Sq={sq}, "
                          f"Sk={sk}")
-    if q.dtype not in _DTYPE_CODES:
+    if reason == "dtype":
         raise TypeError(f"unsupported dtype {q.dtype}; expected float32, "
                         f"float16 or bfloat16")
     tensors = [q, k, v]
@@ -94,12 +127,13 @@ def _check(q, k, v, causal, *, out=None, lse=None, do=None) -> None:
     if any(t.dtype != q.dtype for t in tensors):
         raise TypeError(f"q, k, v (and out, do) must share one dtype, got "
                         f"{[str(t.dtype) for t in tensors]}")
-    if lse is not None:
-        if lse.shape != (b, h, sq) or lse.dtype != torch.float32:
-            raise ValueError(f"lse must be float32 (B, H, Sq) = "
-                             f"{(b, h, sq)}, got {lse.dtype} "
-                             f"{tuple(lse.shape)}")
-        tensors.append(lse)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t is not None:
+            if t.shape != (b, h, sq) or t.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 (B, H, Sq) = "
+                                 f"{(b, h, sq)}, got {t.dtype} "
+                                 f"{tuple(t.shape)}")
+            tensors.append(t)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"all arguments must be on one device, got "
@@ -152,11 +186,18 @@ def flash_attention_fwd_ref(q, k, v, causal: bool = False,
     return _fwd_ref(q, k, v, vis, _scale(q, scale))
 
 
-def _bwd_terms(q, k, v, out, lse, do, vis, scale):
-    """What both backward kernels recompute from the saved out and lse, in
-    f32 over the repeated kv heads: p = exp(s - lse) (0 where ``vis`` is
-    False), delta = rowsum(dO * O), dS = p (dO V^T - delta) scale; p and dS
-    rounded to the input type, as the kernels use them as operands."""
+def flash_bwd_delta_ref(out, do) -> torch.Tensor:
+    """Plain PyTorch version of the backward's pre-pass: delta =
+    rowsum(dO * O) in f32, ``out.shape[:-1]``."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def _bwd_terms(q, k, v, out, lse, do, vis, scale, delta=None):
+    """What both backward kernels recompute from the saved lse and the
+    pre-pass's delta (from ``out`` if not given), in f32 over the repeated
+    kv heads: p = exp(s - lse) (0 where ``vis`` is False), dS = p (dO V^T -
+    delta) scale; p and dS rounded to the input type, as the kernels use
+    them as operands."""
     h = q.shape[1]
     dt = q.dtype
     qf, dof = q.float(), do.float()
@@ -164,7 +205,9 @@ def _bwd_terms(q, k, v, out, lse, do, vis, scale):
     vf = _expand_kv(v, h).float()
     s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
     p = torch.where(vis, torch.exp(s - lse[..., None]), torch.zeros_like(s))
-    delta = (dof * out.float()).sum(dim=-1, keepdim=True)
+    if delta is None:
+        delta = flash_bwd_delta_ref(out, do)
+    delta = delta[..., None]
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = (p * (dp - delta) * scale).to(dt).float()
     return qf, kf, dof, p.to(dt).float(), ds
@@ -178,13 +221,13 @@ def _group_sum(x: torch.Tensor, kv_heads: int) -> torch.Tensor:
     return x.reshape(b, kv_heads, h // kv_heads, s, d).sum(dim=2)
 
 
-def _dq_ref(q, k, v, out, lse, do, vis, scale):
-    qf, kf, dof, p, ds = _bwd_terms(q, k, v, out, lse, do, vis, scale)
+def _dq_ref(q, k, v, out, lse, do, vis, scale, delta=None):
+    qf, kf, dof, p, ds = _bwd_terms(q, k, v, out, lse, do, vis, scale, delta)
     return torch.matmul(ds, kf).to(q.dtype)
 
 
-def _dkv_ref(q, k, v, out, lse, do, vis, scale):
-    qf, kf, dof, p, ds = _bwd_terms(q, k, v, out, lse, do, vis, scale)
+def _dkv_ref(q, k, v, out, lse, do, vis, scale, delta=None):
+    qf, kf, dof, p, ds = _bwd_terms(q, k, v, out, lse, do, vis, scale, delta)
     hkv = k.shape[1]
     dk = _group_sum(torch.matmul(ds.transpose(-1, -2), qf), hkv)
     dv = _group_sum(torch.matmul(p.transpose(-1, -2), dof), hkv)
@@ -192,19 +235,23 @@ def _dkv_ref(q, k, v, out, lse, do, vis, scale):
 
 
 def flash_attention_dq_ref(q, k, v, out, lse, do, causal: bool = False,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the dq kernel: dq = dS K."""
+                           scale: Optional[float] = None,
+                           delta: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version of the dq kernel: dq = dS K (delta from
+    ``out`` unless given)."""
     vis = _visible(q.shape[2], k.shape[2], causal, q.device)
-    return _dq_ref(q, k, v, out, lse, do, vis, _scale(q, scale))
+    return _dq_ref(q, k, v, out, lse, do, vis, _scale(q, scale), delta)
 
 
 def flash_attention_dkv_ref(q, k, v, out, lse, do, causal: bool = False,
-                            scale: Optional[float] = None
+                            scale: Optional[float] = None,
+                            delta: Optional[torch.Tensor] = None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the dk/dv kernel: dk = dS^T Q, dv = P^T dO,
-    summed over each kv group in f32."""
+    summed over each kv group in f32 (delta from ``out`` unless given)."""
     vis = _visible(q.shape[2], k.shape[2], causal, q.device)
-    return _dkv_ref(q, k, v, out, lse, do, vis, _scale(q, scale))
+    return _dkv_ref(q, k, v, out, lse, do, vis, _scale(q, scale), delta)
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, do, causal: bool = False,
@@ -250,24 +297,30 @@ def varlen_flash_fwd_ref(q, k, v, cu_seqlens, causal: bool = False,
     return out[0], lse[0]
 
 
+def _batch1(x):
+    return None if x is None else x[None]
+
+
 def varlen_flash_dq_ref(q, k, v, cu_seqlens, out, lse, do,
-                        causal: bool = False,
-                        scale: Optional[float] = None) -> torch.Tensor:
+                        causal: bool = False, scale: Optional[float] = None,
+                        delta: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
     """Plain PyTorch version of the varlen dq kernel."""
     vis = _segment_visible(cu_seqlens, q.shape[1], causal)
     return _dq_ref(q[None], k[None], v[None], out[None], lse[None],
-                   do[None], vis, _scale(q, scale))[0]
+                   do[None], vis, _scale(q, scale), _batch1(delta))[0]
 
 
 def varlen_flash_dkv_ref(q, k, v, cu_seqlens, out, lse, do,
                          causal: bool = False,
-                         scale: Optional[float] = None
+                         scale: Optional[float] = None,
+                         delta: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the varlen dk/dv kernel (dk/dv summed over
     each kv group)."""
     vis = _segment_visible(cu_seqlens, q.shape[1], causal)
     dk, dv = _dkv_ref(q[None], k[None], v[None], out[None], lse[None],
-                      do[None], vis, _scale(q, scale))
+                      do[None], vis, _scale(q, scale), _batch1(delta))
     return dk[0], dv[0]
 
 
@@ -304,7 +357,8 @@ def flash_attention_ragged_bhsd_ref(q, k, v, kv_lens, causal: bool = True,
 
 # C entry point -> (library, pointer arguments before the common tail
 # (batch, heads, kv_heads, sq, sk, d, causal, scale, dtype, stream), the
-# kernel whose shared-memory size it needs)
+# kernel whose shared-memory size it needs).  The backward's take q, k, v,
+# dout, lse, delta, their outputs (and the varlen span), then the strides.
 _ENTRIES = {"flash_fwd": ("flash_fwd", 6, "flash_fwd"),
             "varlen_fwd": ("flash_fwd", 7, "flash_fwd"),
             "ragged_fwd": ("flash_fwd", 6, "flash_fwd"),
@@ -328,6 +382,10 @@ def _lib(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = i
             getattr(lib, f"{smem}_smem_bytes").argtypes = [i, i]
             getattr(lib, f"{smem}_smem_bytes").restype = ctypes.c_size_t
+    if name == "flash_bwd":
+        # o, dout, delta, strides; batch, heads, sq, d, dtype; stream
+        lib.flash_bwd_delta.argtypes = [p] * 4 + [i] * 5 + [p]
+        lib.flash_bwd_delta.restype = i
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
@@ -377,7 +435,14 @@ def _launch(fn: str, *args) -> None:
         raise ValueError(f"{fn} at head_dim {q.shape[-1]} needs {smem} "
                          f"bytes of shared memory per block (> "
                          f"{_MAX_SMEM_BYTES})")
-    with torch.cuda.device(q.device):
+    _call(lib_name, fn, q.device, args)
+
+
+def _call(lib_name: str, fn: str, device, args) -> None:
+    """Call entry point ``fn`` on the current stream of ``device`` (tensors
+    passed by pointer), raise on a refused launch, count the launch."""
+    lib = _lib(lib_name)
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn)(*[a.data_ptr() if isinstance(a, torch.Tensor)
                                 else a for a in args], stream)
@@ -412,44 +477,85 @@ def flash_attention_fwd(q, k, v, causal: bool = False,
     return out, lse
 
 
-def _bwd_launch(fn, q, k, v, out, lse, do, causal, scale, extra=(),
+def flash_bwd_delta(out, do) -> torch.Tensor:
+    """The backward's pre-pass: delta = rowsum(dO * O) in f32 over (B, H,
+    S, D) (or packed (H, T, D)) ``out`` and ``do``, shape ``out.shape[:-1]``.
+    CPU tensors get the plain version; CUDA tensors the kernel."""
+    if out.dim() not in (3, 4) or do.shape != out.shape:
+        raise ValueError(f"out and do must share one (B, H, S, D) or (H, T, "
+                         f"D) shape, got {tuple(out.shape)} and "
+                         f"{tuple(do.shape)}")
+    if out.dtype not in _DTYPE_CODES or do.dtype != out.dtype:
+        raise TypeError(f"out and do must share one dtype of float32, "
+                        f"float16 or bfloat16, got {out.dtype}, {do.dtype}")
+    if do.device != out.device:
+        raise ValueError(f"all arguments must be on one device, got "
+                         f"{out.device} and {do.device}")
+    # the kernel reads each row in 16-byte vectors
+    vec = 16 // out.element_size()
+    if out.shape[-1] % vec:
+        raise ValueError(f"head_dim {out.shape[-1]} is not supported: the "
+                         f"delta kernel takes a multiple of {vec} for "
+                         f"{out.dtype}")
+    if _device(out) == "cpu":
+        return flash_bwd_delta_ref(out, do)
+    out, do = _rows(out), _rows(do)
+    delta = torch.empty(out.shape[:-1], dtype=torch.float32,
+                        device=out.device)
+    b, h, s, d = out.shape if out.dim() == 4 else (1, *out.shape)
+    _call("flash_bwd", "flash_bwd_delta", out.device,
+          (out, do, delta, _strides(o=out, do=do), b, h, s, d,
+           _DTYPE_CODES[out.dtype]))
+    return delta
+
+
+def _bwd_launch(fn, q, k, v, out, lse, do, causal, scale, delta, extra=(),
                 **outputs):
-    """Launch a backward entry point; ``extra`` are the tensors it takes
-    after its outputs (varlen: the span).  Returns the new outputs."""
-    q, k, v, out, do = (_rows(t) for t in (q, k, v, out, do))
+    """Launch a backward entry point, first the delta pre-pass if ``delta``
+    is None; ``extra`` are the tensors it takes after its outputs (varlen:
+    the span).  Returns the new outputs."""
+    q, k, v, do = (_rows(t) for t in (q, k, v, do))
+    if delta is None:
+        delta = flash_bwd_delta(out, do)
     made = {name: torch.empty_like(like)
             for name, like in (("dq", q), ("dk", k), ("dv", v))
             if name in outputs}
-    st = _strides(q=q, k=k, v=v, o=out, do=do, **made)
-    _launch(fn, q, k, v, out, do, lse.contiguous(), *made.values(), *extra,
-            st, *_dims(q, k, causal, scale))
+    st = _strides(q=q, k=k, v=v, do=do, **made)
+    _launch(fn, q, k, v, do, lse.contiguous(), delta.contiguous(),
+            *made.values(), *extra, st, *_dims(q, k, causal, scale))
     return tuple(made.values())
 
 
 def flash_attention_dq(q, k, v, out, lse, do, causal: bool = False,
-                       scale: Optional[float] = None) -> torch.Tensor:
-    """dq of flash attention from the forward's ``out`` and ``lse``.  CPU
-    tensors get the plain version; CUDA tensors the dq kernel."""
-    _check(q, k, v, causal, out=out, lse=lse, do=do)
+                       scale: Optional[float] = None,
+                       delta: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dq of flash attention from the forward's ``out`` and ``lse`` (and
+    the pre-pass's ``delta``, launched here when not given).  CPU tensors
+    get the plain version; CUDA tensors the dq kernel."""
+    _check(q, k, v, causal, out=out, lse=lse, do=do, delta=delta)
     scale = _scale(q, scale)
     if _device(q) == "cpu":
-        return flash_attention_dq_ref(q, k, v, out, lse, do, causal, scale)
+        return flash_attention_dq_ref(q, k, v, out, lse, do, causal, scale,
+                                      delta)
     return _bwd_launch("flash_dq", q, k, v, out, lse, do, causal, scale,
-                       dq=True)[0]
+                       delta, dq=True)[0]
 
 
 def flash_attention_dkv(q, k, v, out, lse, do, causal: bool = False,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None,
+                        delta: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv of flash attention (like k and v, summed over each kv group)
-    from the forward's ``out`` and ``lse``.  CPU tensors get the plain
-    version; CUDA tensors the dk/dv kernel."""
-    _check(q, k, v, causal, out=out, lse=lse, do=do)
+    from the forward's ``out`` and ``lse`` (and the pre-pass's ``delta``,
+    launched here when not given).  CPU tensors get the plain version;
+    CUDA tensors the dk/dv kernel."""
+    _check(q, k, v, causal, out=out, lse=lse, do=do, delta=delta)
     scale = _scale(q, scale)
     if _device(q) == "cpu":
-        return flash_attention_dkv_ref(q, k, v, out, lse, do, causal, scale)
+        return flash_attention_dkv_ref(q, k, v, out, lse, do, causal, scale,
+                                       delta)
     return _bwd_launch("flash_dkv", q, k, v, out, lse, do, causal, scale,
-                       dk=True, dv=True)
+                       delta, dk=True, dv=True)
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
@@ -457,15 +563,19 @@ def flash_attention_bwd(q, k, v, out, lse, do, causal: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash attention backward from the forward's ``out`` and ``lse``:
     (dq like q, dk like k, dv like v), dk/dv summed over each kv group.
-    CPU tensors get the plain versions; CUDA tensors the dq and the dk/dv
-    kernels."""
-    dq = flash_attention_dq(q, k, v, out, lse, do, causal, scale)
-    return (dq, *flash_attention_dkv(q, k, v, out, lse, do, causal, scale))
+    CPU tensors get the plain versions; CUDA tensors the delta pre-pass
+    (once), then the dq and the dk/dv kernels."""
+    _check(q, k, v, causal, out=out, lse=lse, do=do)
+    delta = flash_bwd_delta(out, do)
+    dq = flash_attention_dq(q, k, v, out, lse, do, causal, scale, delta)
+    return (dq, *flash_attention_dkv(q, k, v, out, lse, do, causal, scale,
+                                     delta))
 
 
 # -- packed sequences (varlen): wrappers ------------------------------------
 
-def _check_varlen(q, k, v, cu, causal, *, out=None, lse=None, do=None):
+def _check_varlen(q, k, v, cu, causal, *, out=None, lse=None, do=None,
+                  delta=None):
     """The dense checks on the packed (H, T, D) tensors as one batch, plus
     ``cu_seqlens``: 1-D integer, on q's device."""
     if q.dim() != 3 or k.dim() != 3 or k.shape != v.shape:
@@ -484,10 +594,8 @@ def _check_varlen(q, k, v, cu, causal, *, out=None, lse=None, do=None):
     if cu.device != q.device:
         raise ValueError(f"all arguments must be on one device, got "
                          f"cu_seqlens on {cu.device} and q on {q.device}")
-    _check(q[None], k[None], v[None], causal,
-           out=None if out is None else out[None],
-           lse=None if lse is None else lse[None],
-           do=None if do is None else do[None])
+    _check(q[None], k[None], v[None], causal, out=_batch1(out),
+           lse=_batch1(lse), do=_batch1(do), delta=_batch1(delta))
 
 
 def _segment_span(cu_seqlens: torch.Tensor, t: int) -> torch.Tensor:
@@ -525,33 +633,39 @@ def varlen_flash_fwd(q, k, v, cu_seqlens, causal: bool = False,
 
 
 def varlen_flash_dq(q, k, v, cu_seqlens, out, lse, do, causal: bool = False,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    delta: Optional[torch.Tensor] = None) -> torch.Tensor:
     """dq of packed-sequence flash attention from the forward's ``out`` and
-    ``lse`` (H, T).  CPU tensors get the plain version; CUDA tensors the
+    ``lse`` (H, T) (and the pre-pass's ``delta`` (H, T), launched here when
+    not given).  CPU tensors get the plain version; CUDA tensors the
     varlen dq kernel."""
-    _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do)
+    _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do,
+                  delta=delta)
     scale = _scale(q, scale)
     if _device(q) == "cpu":
         return varlen_flash_dq_ref(q, k, v, cu_seqlens, out, lse, do, causal,
-                                   scale)
+                                   scale, delta)
     return _bwd_launch("varlen_dq", q, k, v, out, lse, do, causal, scale,
-                       (_segment_span(cu_seqlens, q.shape[1]),), dq=True)[0]
+                       delta, (_segment_span(cu_seqlens, q.shape[1]),),
+                       dq=True)[0]
 
 
 def varlen_flash_dkv(q, k, v, cu_seqlens, out, lse, do, causal: bool = False,
-                     scale: Optional[float] = None
+                     scale: Optional[float] = None,
+                     delta: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """dk, dv of packed-sequence flash attention (like k and v, summed over
     each kv group).  CPU tensors get the plain version; CUDA tensors the
     varlen dk/dv kernel."""
-    _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do)
+    _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do,
+                  delta=delta)
     scale = _scale(q, scale)
     if _device(q) == "cpu":
         return varlen_flash_dkv_ref(q, k, v, cu_seqlens, out, lse, do,
-                                    causal, scale)
+                                    causal, scale, delta)
     return _bwd_launch("varlen_dkv", q, k, v, out, lse, do, causal, scale,
-                       (_segment_span(cu_seqlens, q.shape[1]),), dk=True,
-                       dv=True)
+                       delta, (_segment_span(cu_seqlens, q.shape[1]),),
+                       dk=True, dv=True)
 
 
 def varlen_flash_bwd(q, k, v, cu_seqlens, out, lse, do, causal: bool = False,
@@ -559,10 +673,13 @@ def varlen_flash_bwd(q, k, v, cu_seqlens, out, lse, do, causal: bool = False,
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Packed-sequence flash attention backward: (dq, dk, dv), dk/dv summed
     over each kv group.  CPU tensors get the plain versions; CUDA tensors
-    the varlen dq and dk/dv kernels."""
-    dq = varlen_flash_dq(q, k, v, cu_seqlens, out, lse, do, causal, scale)
+    the delta pre-pass (once), then the varlen dq and dk/dv kernels."""
+    _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do)
+    delta = flash_bwd_delta(out, do)
+    dq = varlen_flash_dq(q, k, v, cu_seqlens, out, lse, do, causal, scale,
+                         delta)
     return (dq, *varlen_flash_dkv(q, k, v, cu_seqlens, out, lse, do, causal,
-                                  scale))
+                                  scale, delta))
 
 
 # -- ragged lengths: wrapper ------------------------------------------------

@@ -12,8 +12,11 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.nn.functional import (flash_attn_unpadded,
-                                            scaled_dot_product_attention)
+from paddle_tpu_torch.nn.functional import (ROUTE_COUNTS,
+                                            flash_attn_unpadded,
+                                            reset_route_counts,
+                                            scaled_dot_product_attention,
+                                            sdpa)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.attention import (
     LAUNCH_COUNTS, ragged_paged_attention_decode,
@@ -97,9 +100,10 @@ def test_rpa_decode_kernel_refuses_what_it_cannot_take(cuda_device):
 FLASH_REL = {torch.float16: 2e-3, torch.bfloat16: 1e-2}
 
 
-def flash_inputs(device, dtype, b, h, hkv, s, d, seed=0):
+def flash_inputs(device, dtype, b, h, hkv, s, d, seed=0, sk=None):
     rng = np.random.default_rng(seed)
-    shapes = [(b, h, s, d), (b, hkv, s, d), (b, hkv, s, d), (b, h, s, d)]
+    sk = s if sk is None else sk
+    shapes = [(b, h, s, d), (b, hkv, sk, d), (b, hkv, sk, d), (b, h, s, d)]
     return [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
             .to(device=device, dtype=dtype) for sh in shapes]
 
@@ -114,28 +118,44 @@ def flash_close(got, want, dtype):
         assert diff <= bound, (diff, bound)
 
 
+# 16-bit D 64 and 128 take the wgmma/TMA backward kernels, other D (96)
+# the mma.sync ones, float32 the f32 ones: every route, at the training
+# shape, GQA, partial last tiles of 64 and 128 rows (S=4000), Sq != Sk
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal", [
-    (torch.bfloat16, 1, 8, 8, 1024, 128, True),
-    (torch.bfloat16, 2, 8, 2, 1000, 128, True),
-    (torch.float16, 2, 4, 4, 1, 64, True),
-    (torch.bfloat16, 1, 4, 2, 333, 64, False),
-    (torch.float32, 2, 4, 2, 200, 64, True),
-    (torch.float32, 1, 4, 4, 130, 16, False),
+@pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,sk", [
+    (torch.bfloat16, 1, 8, 8, 1024, 128, True, None),
+    (torch.bfloat16, 2, 8, 2, 1000, 128, True, None),
+    (torch.float16, 2, 4, 4, 1, 64, True, None),
+    (torch.bfloat16, 1, 4, 2, 333, 64, False, None),
+    (torch.float32, 2, 4, 2, 200, 64, True, None),
+    (torch.float32, 1, 4, 4, 130, 16, False, None),
+    (torch.bfloat16, 1, 32, 32, 4096, 128, True, None),
+    (torch.bfloat16, 1, 32, 8, 2048, 128, True, None),
+    (torch.bfloat16, 1, 4, 4, 4000, 128, True, None),
+    (torch.bfloat16, 1, 4, 4, 1000, 128, False, 1500),
+    (torch.float16, 2, 16, 16, 512, 64, True, None),
+    (torch.bfloat16, 1, 4, 4, 333, 96, True, None),
 ], ids=["bf16_mha", "bf16_gqa_ragged", "f16_s1", "bf16_full_d64",
-        "f32_gqa", "f32_full_d16"])
+        "f32_gqa", "f32_full_d16", "bf16_training_shape", "bf16_gqa_32_8",
+        "bf16_s4000", "bf16_full_sq1000_sk1500", "f16_b2_d64",
+        "bf16_d96_mma_route"])
 def test_flash_kernels_match_plain_versions(cuda_device, dtype, b, h, hkv,
-                                            s, d, causal):
-    q, k, v, do = flash_inputs(cuda_device, dtype, b, h, hkv, s, d)
+                                            s, d, causal, sk):
+    q, k, v, do = flash_inputs(cuda_device, dtype, b, h, hkv, s, d, sk=sk)
     before = dict(LAUNCH_COUNTS)
     out, lse = fa.flash_attention_fwd(q, k, v, causal)
     ro, rl = fa.flash_attention_fwd_ref(q, k, v, causal)
     dq = fa.flash_attention_dq(q, k, v, ro, rl, do, causal)
     dk, dv = fa.flash_attention_dkv(q, k, v, ro, rl, do, causal)
+    delta = fa.flash_bwd_delta(ro, do)
     torch.cuda.synchronize()
+    # dq and dk/dv called alone launch the delta pre-pass each
     assert {n: LAUNCH_COUNTS[n] - before[n] for n in
-            ("flash_fwd", "flash_dq", "flash_dkv")} == \
-        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+            ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")} == \
+        {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_bwd_delta": 3}
+    # f32 on both sides, summed in another order
+    torch.testing.assert_close(delta, fa.flash_bwd_delta_ref(ro, do),
+                               atol=1e-5, rtol=1e-5)
     flash_close(out, ro, dtype)
     torch.testing.assert_close(lse, rl, atol=1e-5, rtol=1e-5)
     flash_close(dq, fa.flash_attention_dq_ref(q, k, v, ro, rl, do, causal),
@@ -164,12 +184,52 @@ def test_sdpa_on_the_card_always_launches_the_flash_kernels(cuda_device):
 
 
 @pytest.mark.gpu
+def test_sdpa_on_the_card_routes_by_shape(cuda_device):
+    """head_dim 72 takes the flash kernels zero-padded to 80 and head_dim
+    128 as it is: each launches the flash forward, dq and dk/dv once and
+    the delta pre-pass once, and matches the plain sdpa in f32 (the bf16
+    flash tolerance).  Causal with Sq < Sk goes to the plain sdpa, launching
+    nothing, as the reference routes it.  head_dim 136, which the
+    reference's kernel takes and no kernel here does, raises."""
+    reset_route_counts()
+    for d, sq in ((72, 64), (128, 64), (64, 32)):
+        q, k, v, do = (x.transpose(1, 2).contiguous().requires_grad_()
+                       for x in flash_inputs(cuda_device, torch.bfloat16, 2,
+                                             4, 2, 64, d))
+        q = q[:, :sq].detach().requires_grad_()
+        before = dict(LAUNCH_COUNTS)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        out.backward(do[:, :sq].detach())
+        torch.cuda.synchronize()
+        launched = {n: LAUNCH_COUNTS[n] - before[n] for n in
+                    ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")}
+        assert launched == {n: int(sq == 64) for n in launched}, (d, launched)
+        assert out.shape == q.shape and k.grad.shape == k.shape
+        assert torch.isfinite(q.grad.float()).all()
+        want = sdpa(q.detach().float(), k.detach().float(),
+                    v.detach().float(), scale=1.0 / math.sqrt(d),
+                    is_causal=True)
+        flash_close(out.detach(), want, torch.bfloat16)
+    assert ROUTE_COUNTS == {"sdpa_flash_padded": 1, "sdpa_flash": 1,
+                            "sdpa_plain:causal_rect": 1}
+    q, k, _, _ = flash_inputs(cuda_device, torch.bfloat16, 1, 4, 2, 16, 136)
+    with pytest.raises(ValueError, match="head_dim 136 is not supported"):
+        scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     k.transpose(1, 2), is_causal=True)
+    reset_route_counts()
+
+
+@pytest.mark.gpu
 def test_flash_kernels_refuse_what_they_cannot_take(cuda_device):
     q, k, v, _ = flash_inputs(cuda_device, torch.float32, 1, 4, 2, 16, 64)
     with pytest.raises(ValueError, match="one device"):
         fa.flash_attention_fwd(q, k.cpu(), v, True)
     with pytest.raises(ValueError, match="Sq == Sk"):
         fa.flash_attention_fwd(q, k[:, :, :8], v[:, :, :8], True)
+    # the delta pre-pass reads rows in 16-byte vectors: bf16 D=20 is not
+    o = torch.zeros(1, 4, 16, 20, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fa.flash_bwd_delta(o, o)
 
 
 def quant_rpa_inputs(device, dtype, heads, kv_heads, d, page, lens, seed=0):
@@ -269,6 +329,10 @@ def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
     assert LAUNCH_COUNTS == before
 
 
+# the packed-training shape: T = 4096 tokens in six documents
+PACKED_CU = [0, 1531, 2531, 3231, 3748, 4003, 4096]
+
+
 # packed-sequence (varlen) kernels vs plain versions: the dense kernels'
 # tolerances (flash_close).  The cases hold a one-token document, a tail
 # past cu[-1] (a segment of its own), T not a multiple of 64, GQA.
@@ -279,8 +343,12 @@ def test_quant_matmul_kernel_refuses_what_it_cannot_take(cuda_device):
     (torch.float16, 4, 4, 130, 64, True, [0, 1, 2, 3, 130]),
     (torch.float32, 4, 2, 200, 64, True, [0, 50, 120, 200]),
     (torch.float32, 4, 4, 97, 16, False, [0, 10, 97]),
+    (torch.bfloat16, 32, 32, 4096, 128, True, PACKED_CU),
+    (torch.bfloat16, 32, 32, 4096, 128, False, PACKED_CU),
+    (torch.bfloat16, 32, 8, 4096, 128, True, PACKED_CU),
 ], ids=["bf16_causal_one_token_doc", "bf16_gqa_full_tail",
-        "f16_single_tokens", "f32_gqa", "f32_full_d16"])
+        "f16_single_tokens", "f32_gqa", "f32_full_d16", "bf16_packed",
+        "bf16_packed_full", "bf16_packed_gqa"])
 def test_varlen_kernels_match_plain_versions(cuda_device, dtype, h, hkv, t,
                                              d, causal, cu):
     q, k, v, do = (x[0] for x in flash_inputs(cuda_device, dtype, 1, h, hkv,

@@ -21,6 +21,7 @@ from paddle_tpu.ops.op import apply as japply
 from paddle_tpu.ops.pallas import attention as pa
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_bwd, flash_attention_bwd_ref, flash_attention_fwd,
     flash_attention_fwd_ref)
@@ -97,6 +98,49 @@ def test_plain_backward_matches_pallas_dq_dkv_kernels(s, d, causal, dt):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == dt
         assert_close(g, w, dt, name)
+
+
+def test_backward_pre_pass_delta_is_used_by_both_kernels():
+    """``flash_bwd_delta`` is rowsum(dO * O) in f32 (against numpy in
+    f64, 1e-5); dq and dk/dv given it through ``delta=`` equal the same
+    wrappers computing it themselves, and equal the whole backward; a
+    wrong delta changes dq and dk (not dv, which needs no delta)."""
+    q, k, v, do = (torch.from_numpy(x) for x in inputs(128, 16, heads=4,
+                                                       kv_heads=2))
+    out, lse = flash_attention_fwd_ref(q, k, v, True)
+    delta = fa.flash_bwd_delta(out, do)
+    want = (do.double() * out.double()).sum(-1)
+    assert delta.dtype == torch.float32 and delta.shape == lse.shape
+    np.testing.assert_allclose(delta.numpy(), want.numpy(), rtol=1e-5,
+                               atol=1e-5)
+    dq = fa.flash_attention_dq(q, k, v, out, lse, do, True, delta=delta)
+    dk, dv = fa.flash_attention_dkv(q, k, v, out, lse, do, True,
+                                    delta=delta)
+    for got, ref in zip((dq, dk, dv),
+                        flash_attention_bwd(q, k, v, out, lse, do, True)):
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
+    assert torch.equal(dq, fa.flash_attention_dq(q, k, v, out, lse, do,
+                                                 True))
+    bad_dq = fa.flash_attention_dq(q, k, v, out, lse, do, True,
+                                   delta=delta + 1.0)
+    bad_dk, bad_dv = fa.flash_attention_dkv(q, k, v, out, lse, do, True,
+                                            delta=delta + 1.0)
+    assert not torch.allclose(bad_dq, dq) and not torch.allclose(bad_dk, dk)
+    torch.testing.assert_close(bad_dv, dv, rtol=0, atol=0)
+    with pytest.raises(ValueError, match="delta must be float32"):
+        fa.flash_attention_dq(q, k, v, out, lse, do, True,
+                              delta=delta.double())
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 20),
+                                     (torch.float32, 18)])
+def test_pre_pass_refuses_rows_it_cannot_read_in_16_byte_vectors(dtype, d):
+    """The delta kernel reads each row in 16-byte vectors, so its wrapper
+    refuses a head_dim that is not a multiple of 8 (16-bit) or 4 (f32), on
+    the CPU as on the card."""
+    o = torch.zeros(2, 16, d, dtype=dtype)
+    with pytest.raises(ValueError, match=f"head_dim {d} is not supported"):
+        fa.flash_bwd_delta(o, o)
 
 
 def test_plain_backward_is_not_autograd_of_the_forward():

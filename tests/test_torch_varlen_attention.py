@@ -143,6 +143,25 @@ def test_varlen_wrappers_on_the_cpu_are_the_plain_versions():
     assert LAUNCH_COUNTS == before
 
 
+
+def test_varlen_backward_takes_the_pre_pass_delta():
+    """The packed (H, T) delta of ``flash_bwd_delta`` given to the varlen
+    dq and dk/dv through ``delta=`` gives the whole backward's gradients
+    exactly (both plain versions on the CPU)."""
+    q, k, v, do, cu = varlen_inputs("t384-d64-gqa", torch.float32)
+    out, lse = fa.varlen_flash_fwd(q, k, v, cu, True)
+    delta = fa.flash_bwd_delta(out, do)
+    assert delta.shape == lse.shape == (q.shape[0], q.shape[1])
+    got = (fa.varlen_flash_dq(q, k, v, cu, out, lse, do, True, delta=delta),
+           *fa.varlen_flash_dkv(q, k, v, cu, out, lse, do, True,
+                                delta=delta))
+    want = fa.varlen_flash_bwd(q, k, v, cu, out, lse, do, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="delta must be float32"):
+        fa.varlen_flash_dq(q, k, v, cu, out, lse, do, True,
+                           delta=delta[:, :-1])
+
+
 # (B, H, Sq, Sk, D, kv_lens): a length inside the last tile, a length of 0,
 # a full row, a length of 1, and a rectangular non-causal case
 RAGGED = {
