@@ -9,13 +9,17 @@ and prints no result line):
 1. device — the card's name, count, and ``nvidia-smi`` name/power limit;
 2. build  — nvcc compiles every kernel source of the package (sm_90a), one
    process per source, all started together, and reports ptxas's
-   registers and spills of each kernel and the wgmma (HGMMA) and TMA-load
-   (UTMALDG) instructions of the backward's library;
+   registers and spills of each kernel (none may spill in a wgmma kernel
+   or a head_dim-256 instantiation) and the wgmma (HGMMA) and TMA-load
+   (UTMALDG) instructions of the flash forward's and backward's libraries;
 3. kernel — each kernel against its plain PyTorch version on the same
-   inputs at the main paths' shapes, plus edge cases; kernel, plain and
-   library times with CUDA events (L2 flushed between launches) and the
-   card's bound for the same work (the ragged flash forward, which no
-   path calls, at the serving chunk shape);
+   inputs at the main paths' shapes, plus edge cases (head_dim up to 256);
+   kernel, plain and library times with CUDA events (L2 flushed between
+   launches) and the card's bound for the same work (the ragged flash
+   forward, which no path calls, at the serving chunk shape; the flash
+   kernels also at head_dim 256); the attention functionals at head_dim
+   136, 192, 256 and 272 on the card against the same calls on the CPU
+   (the kernels' plain versions), with their routes;
 4. serve  — Llama-7B at full width and depth (random weights from a seed,
    bf16) behind ``ServingEngine``: 10 greedy requests, launch counts read
    around the run, first-decode-step logits held against an engine on the
@@ -164,10 +168,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 # -- phase 2: the build's report ------------------------------------------
 
 def build_report(lib: str, info: dict) -> None:
-    """ptxas's registers and spill bytes of each kernel of a library; for
-    libflash_bwd also the wgmma (HGMMA) and TMA-load (UTMALDG) instructions
-    in its SASS, which show that its 16-bit D 64/128 kernels are the
-    warp-specialised ones."""
+    """ptxas's registers and spill bytes of each kernel of a library (it
+    raises where a warp-specialised kernel or a head_dim-256 instantiation
+    spills) and ptxas's warnings that it serialised wgmma; for libflash_fwd
+    and libflash_bwd also the wgmma (HGMMA) and TMA-load (UTMALDG)
+    instructions in their SASS, which show that their 16-bit kernels at D
+    64/128 (the forward's at 256 too) are the warp-specialised ones."""
     from paddle_tpu_torch.ops.cuda import _build
     tools = Path(_build._nvcc()).parent
     kernel, rows = None, {}
@@ -186,23 +192,32 @@ def build_report(lib: str, info: dict) -> None:
                            input="\n".join(mangled), capture_output=True,
                            text=True, timeout=60, check=True).stdout
     names = names.splitlines()
+    must_not_spill = []
     for kernel, name in zip(mangled, names):
         r = rows[kernel]
         log(f"  {lib}: {name}: {r.get('regs')} registers, "
             f"{r.get('spill', 0)} bytes spill stores")
-    if lib == "flash_bwd":
+        # the wgmma kernels, and the mma.sync kernels' head_dim-256 ones
+        if "_ws_" in kernel or re.search(r", 256>", name):
+            must_not_spill.append((name, r.get("spill", 0)))
+    for line in info["ptxas"].splitlines():
+        if "Performance Loss" in line or "serialized" in line:
+            log(f"  {lib}: ptxas: {line.strip()}")
+    if lib in ("flash_fwd", "flash_bwd"):
         sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
                                info["path"]],
                               capture_output=True, text=True, timeout=300,
                               check=True).stdout
         counts = {op: len(re.findall(op, sass)) for op in ("HGMMA", "UTMALDG")}
-        spills = sum(r.get("spill", 0) for k, r in rows.items()
-                     if "_ws_" in k)
+        spills = sum(n for _, n in must_not_spill)
         log(f"  {lib}: SASS holds {counts['HGMMA']} HGMMA (wgmma) and "
             f"{counts['UTMALDG']} UTMALDG (TMA tile load) instructions; the "
-            f"wgmma kernels spill {spills} bytes")
+            f"wgmma and head_dim-256 kernels spill {spills} bytes")
         if not counts["HGMMA"] or not counts["UTMALDG"]:
-            raise AssertionError("libflash_bwd has no wgmma or no TMA load")
+            raise AssertionError(f"lib{lib} has no wgmma or no TMA load")
+        if spills:
+            raise AssertionError(f"lib{lib}: kernels spill: " + "; ".join(
+                f"{n} {b} bytes" for n, b in must_not_spill if b))
 
 
 # -- phase 3: kernels vs plain ----------------------------------------------
@@ -453,6 +468,22 @@ def phase_flash_kernels(card, bw):
         ("float32 non-causal D=128", 1, 4, 4, 200, 128, f32, False),
         ("float32, the train-parity shape (D=16)", 2, 4, 2, 128, 16, f32,
          True),
+        # the wgmma forward at fp16 D=64 and 128
+        ("fp16 D=128 non-causal, GQA", 1, 16, 4, 777, 128, f16, False),
+        ("fp16 D=64, S=1000", 1, 8, 8, 1000, 64, f16, True),
+        # head_dim 256: the wgmma forward, the mma.sync backward (DMAX 256)
+        ("D=256, GQA 32q/8kv, S=4000", 1, 32, 8, 4000, 256, bf16, True),
+        ("D=256 non-causal, GQA 32q/8kv, S=4000", 1, 32, 8, 4000, 256, bf16,
+         False),
+        ("D=256 fp16", 1, 32, 8, 4000, 256, f16, True),
+        ("D=256 fp16 non-causal", 2, 8, 8, 1000, 256, f16, False),
+        ("D=256, S=1", 2, 32, 8, 1, 256, bf16, True),
+        ("D=256 fp16, S=1", 2, 32, 8, 1, 256, f16, False),
+        ("D=144 and 192 (the mma.sync kernels, DMAX 256)", 1, 8, 4, 500,
+         144, bf16, True),
+        ("D=192 fp16 non-causal Sq=300 != Sk=450", 1, 8, 8, 300, 192, f16,
+         False, 450),
+        ("float32 D=256", 1, 4, 2, 130, 256, f32, True),
     ]
     main = None
     for i, case in enumerate(cases):
@@ -502,6 +533,7 @@ def phase_flash_kernels(card, bw):
         f"(backward alone {sdpa_bwd:.4f} ms, dq/dk/dv together); the "
         f"backward's three kernels (delta, dq, dk/dv) together {bwd:.4f} ms "
         f"= {bwd / sdpa_bwd:.2f} x SDPA's backward")
+    flash_times_d256(card, bw)
     src = {"flash_fwd": ("flash_fwd.cu", "paddle_tpu/ops/pallas/"
                                          "attention.py:99"),
            "flash_dq": ("flash_bwd.cu", "paddle_tpu/ops/pallas/"
@@ -521,6 +553,119 @@ def phase_flash_kernels(card, bw):
              # library call computes dq alone, dk/dv alone or delta
              "library_ms": lib_fwd if n == "flash_fwd" else None}
             for n in ms]
+
+
+def flash_times_d256(card, bw):
+    """The flash kernels at head_dim 256 (B=1, H=8, S=4096, bf16, causal;
+    no path of the port runs it, its users bring their own models): kernel,
+    plain and SDPA times beside the bounds, printed only."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    q, k, v, do = flash_inputs(1, 8, 8, 4096, 256, torch.bfloat16,
+                               SEED + 300)
+    out, lse = fa.flash_attention_fwd_ref(q, k, v, True)
+    delta = fa.flash_bwd_delta(out, do)
+    ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(q, k, v,
+                                                              True)),
+          "flash_dq": time_ms(lambda: fa.flash_attention_dq(
+              q, k, v, out, lse, do, True, delta=delta)),
+          "flash_dkv": time_ms(lambda: fa.flash_attention_dkv(
+              q, k, v, out, lse, do, True, delta=delta))}
+    plain = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd_ref(
+                 q, k, v, True), iters=5, warmup=1),
+             "flash_dq": time_ms(lambda: fa.flash_attention_dq_ref(
+                 q, k, v, out, lse, do, True), iters=5, warmup=1),
+             "flash_dkv": time_ms(lambda: fa.flash_attention_dkv_ref(
+                 q, k, v, out, lse, do, True), iters=5, warmup=1)}
+    lib_fwd = time_ms(lambda: tf.scaled_dot_product_attention(
+        q, k, v, is_causal=True))
+    qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+
+    def sdpa_fwd_bwd():
+        o = tf.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        torch.autograd.grad(o, (qg, kg, vg), do)
+    lib_bwd = time_ms(sdpa_fwd_bwd) - lib_fwd
+    bounds = flash_bounds(q, k, True, bw)
+    log(f"  timing at head_dim 256 (B=1 H=8 S=4096 bf16 causal; {card}), "
+        f"ms: " + "; ".join(
+            f"{n} kernel {ms[n]:.4f} plain {plain[n]:.4f} bound "
+            f"{bounds[n][0]:.4f} ({bounds[n][1]})" for n in ms)
+        + f"; library SDPA forward {lib_fwd:.4f}, backward {lib_bwd:.4f}")
+
+
+def phase_wide_heads(card):
+    """C2: the attention functionals at head_dim 136, 192, 256 (the flash
+    kernels, zero-padded to a multiple of 16) and 272 (the plain path, as
+    the reference routes it) in bf16, fp16 and f32, on the card against
+    the same calls on CPU copies, which compute the kernels' plain
+    versions: outputs and q/k/v gradients within the flash tolerances (the
+    plain path's in f32 only), each call's route counted and its kernels
+    launched."""
+    from paddle_tpu_torch.nn.functional import (ROUTE_COUNTS,
+                                                flash_attn_unpadded,
+                                                reset_route_counts,
+                                                scaled_dot_product_attention)
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS
+    worst = 0.0
+    for d in (136, 192, 256, 272):
+        kernel = d <= 256
+        route = "flash" if d % 16 == 0 else "flash_padded"
+        for dtype in (torch.bfloat16, torch.float16, torch.float32):
+            g = torch.Generator().manual_seed(SEED + d)
+            b, s, h, hkv, t = 2, 256, 8, 2, 300
+            cu = [0, 100, 101, t]
+            dense = [torch.randn(b, s, n, d, generator=g).to(dtype)
+                     for n in (h, hkv, hkv, h)]
+            packed = [torch.randn(t, n, d, generator=g).to(dtype)
+                      for n in (h, hkv, hkv, h)]
+            calls = {
+                "sdpa": (dense, lambda q, k, v, dev:
+                         scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)),
+                "varlen": (packed, lambda q, k, v, dev: flash_attn_unpadded(
+                    q, k, v, *[torch.tensor(cu, dtype=torch.int32,
+                                            device=dev)] * 2, t, t,
+                    d ** -0.5, causal=True)[0])}
+            for kind, (xs, fn) in calls.items():
+                res = {}
+                for dev in ("cuda", "cpu"):
+                    q, k, v = (x.to(dev).requires_grad_() for x in xs[:3])
+                    reset_route_counts()
+                    before = dict(LAUNCH_COUNTS)
+                    out = fn(q, k, v, dev)
+                    out.backward(xs[3].to(dev))
+                    if dev == "cuda":
+                        torch.cuda.synchronize()
+                        want = ({f"{kind}_{route}": 1} if kernel else
+                                {f"{kind}_plain:head_dim": 1})
+                        if ROUTE_COUNTS != want:
+                            raise AssertionError(f"{kind} d={d} {dtype}: "
+                                                 f"routes {ROUTE_COUNTS}")
+                        names = (("flash_fwd", "flash_dq", "flash_dkv")
+                                 if kind == "sdpa" else
+                                 ("varlen_fwd", "varlen_dq", "varlen_dkv"))
+                        got = {n: LAUNCH_COUNTS[n] - before[n]
+                               for n in names}
+                        if got != {n: int(kernel) for n in names}:
+                            raise AssertionError(f"{kind} d={d} {dtype}: "
+                                                 f"launches {got}")
+                    res[dev] = [x.detach().cpu() for x in
+                                (out, q.grad, k.grad, v.grad)]
+                for name, a, w in zip(("out", "dq", "dk", "dv"), res["cuda"],
+                                      res["cpu"]):
+                    if not torch.isfinite(a.float()).all():
+                        raise AssertionError(f"{kind} d={d} {dtype}: "
+                                             f"non-finite {name}")
+                    # the plain path (d=272) rounds its logits to 16 bits
+                    # on both devices: its values are held in f32 only
+                    if kernel or dtype == torch.float32:
+                        worst = max(worst, flash_compare(
+                            f"{kind} d={d} {dtype} {name}", a, w, dtype))
+    reset_route_counts()
+    log(f"  functionals at head_dim 136/192/256 (flash kernels, padded) and "
+        f"272 (plain path), bf16/fp16/f32, dense and packed, card vs CPU "
+        f"({card}): routes and launches as expected, outputs and gradients "
+        f"within FLASH_REL_TOL / TOL[float32] (max abs err {worst:.3e})")
 
 
 def delta_bound(out, bw):
@@ -651,6 +796,10 @@ def phase_varlen_kernels(card, bw):
          [0, 100, 400, 700]),
         ("float32 non-causal D=128, a tail", 4, 4, 200, 128, f32, False,
          [0, 50, 150]),
+        ("D=256, GQA, one-token document", 8, 2, 1000, 256, bf16, True,
+         [0, 300, 301, 700, 1000]),
+        ("fp16 D=256 non-causal, a tail", 4, 4, 777, 256, f16, False,
+         [0, 100, 400]),
     ]
     main = None
     for i, case in enumerate(cases):
@@ -1652,6 +1801,7 @@ def main() -> int:
     log("[3/9] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
         phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw)
+    phase_wide_heads(card)
     launches = {"rpa_decode": phase_serve(card)["rpa_decode"]}
     launches.update({n: v for n, v in phase_train(
         card, PEAK_OPS[torch.bfloat16]).items() if n.startswith("flash_")})

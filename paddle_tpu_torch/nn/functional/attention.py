@@ -9,19 +9,16 @@ Dispatch: attention with no mask and no dropout takes ``flash_sdpa``, a
 (``ops/cuda/flash_attention.py``: on CUDA tensors the CUDA kernels, on CPU
 tensors their plain versions, through the same Function), wherever the
 kernels take the call (``flash_refusal``): head_dim a multiple of 16 in
-16..128, Sq == Sk when causal, float32/float16/bfloat16.  A head_dim below
-128 that is not a multiple of 16 is zero-padded to the next one
+16..256, Sq == Sk when causal, float32/float16/bfloat16.  A head_dim up to
+256 that is not a multiple of 16 is zero-padded to the next one
 (``padded_head_dim``) and still takes the kernels.  The plain ``sdpa`` (its
 causal mask bottom-right aligned, ``tril(diagonal=Sk - Sq)``, as the
 reference's) takes every call with a mask or training dropout, and what
 the reference's own gate (``fallback_reason``) and dtypes send to its plain
 path: causal with Sq != Sk, head_dim above 256, dtypes other than the
-three.  A head_dim in 129..256, which the reference's kernel takes and no
-kernel here does yet, takes the plain path on CPU tensors and raises on
-CUDA tensors.  This is the port's ``_should_use_pallas`` minus the
-reference's TPU tuning (TPU only, seq >= 1024, the 512/256/128 tile rule),
-which on the card would quietly send training below seq 1024 to the plain
-path.
+three.  This is the port's ``_should_use_pallas`` minus the reference's
+TPU tuning (TPU only, seq >= 1024, the 512/256/128 tile rule), which on
+the card would quietly send training below seq 1024 to the plain path.
 
 Packed sequences (``flash_attn_unpadded``, ``(total_tokens, heads,
 head_dim)`` with ``cu_seqlens``) take ``_FlashVarlen``, the same kind of
@@ -45,7 +42,7 @@ from typing import Optional
 
 import torch
 
-from ...ops.cuda.flash_attention import (MAX_HEAD_DIM, flash_attention_bwd,
+from ...ops.cuda.flash_attention import (flash_attention_bwd,
                                          flash_attention_fwd, flash_refusal,
                                          padded_head_dim, segment_ids,
                                          varlen_flash_bwd, varlen_flash_fwd)
@@ -53,9 +50,6 @@ from ...ops.cuda.flash_attention import (MAX_HEAD_DIM, flash_attention_bwd,
 __all__ = ["scaled_dot_product_attention", "flash_sdpa", "sdpa",
            "flash_attention", "flash_attn_unpadded", "sdp_kernel",
            "ROUTE_COUNTS", "reset_route_counts"]
-
-# the reference's fallback_reason sends larger head dims to its plain path
-_REFERENCE_MAX_HEAD_DIM = 256
 
 # One count per call: "<path>[:<reason>]", e.g. "sdpa_flash" or
 # "sdpa_plain:head_dim".  Where LAUNCH_COUNTS says which kernels ran, this
@@ -75,20 +69,13 @@ def _flash_gate(kind: str, query, key, causal: bool) -> Optional[int]:
     """Count the route of a call with no mask and no dropout (``kind`` is
     ``sdpa`` or ``varlen``; query/key (B, S, H, D) or packed (T, H, D)) and
     return the head_dim at which it takes the flash kernels, or None for
-    the plain path.  Raises on a CUDA tensor whose head_dim the reference's
-    kernel takes and no kernel here does."""
+    the plain path."""
     d = query.shape[-1]
     dp = padded_head_dim(d)
+    # the kernels' limit is the reference kernel's (256): above it, the
+    # plain path, as the reference routes it
     reason = flash_refusal(query.shape[-3], key.shape[-3], dp, query.dtype,
                            causal)
-    if reason == "head_dim" and d <= _REFERENCE_MAX_HEAD_DIM \
-            and query.device.type != "cpu":
-        raise ValueError(
-            f"head_dim {d} is not supported on {query.device}: the flash "
-            f"kernels take up to {MAX_HEAD_DIM} and the plain path is for "
-            f"what the "
-            f"reference's kernel refuses (head_dim above "
-            f"{_REFERENCE_MAX_HEAD_DIM}) or for CPU tensors")
     if reason is not None:
         _route(f"{kind}_plain:{reason}")
         return None

@@ -46,17 +46,20 @@
 //   waits at its end for the consumers to free the ring, so a wrong byte
 //   or arrival count fails the launch with a CUDA error instead of
 //   hanging it; the consumers' own waits are not bounded (see mbar_wait).
-// - bf16/fp16 at the other head dims (16..112 in steps of 16):
+// - bf16/fp16 at the other head dims (16..256 in steps of 16):
 //   `flash_dq_kernel`/`flash_dkv_kernel`, mma.sync m16n8k16 from ldmatrix
-//   fragments, each warp owning 16 rows, operand tiles by cp.async.
+//   fragments, each warp owning 16 rows, operand tiles by cp.async.  Above
+//   D = 128 (`DMAX` 256) a dq warp holds 16 x D accumulators (128 f32 a
+//   thread at D = 256), and a dk/dv warp, which would need twice that,
+//   holds 128 columns of dK and dV: the grid gives each block of keys two
+//   column halves, and each recomputes S^T and dP^T over the full D (no
+//   shared-memory accumulators, no spills).  The wgmma kernels' resident
+//   tiles do not fit at D = 256 (Q and dO alone are 128 KB).
 // - float32 inputs: plain f32 FMA out of shared memory (no TF32).
 // The route is by head dim and type alone (`launch_dq`, `launch_dkv`).
 // A fused single-pass backward (dq by f32 atomics) is later work.
 
-#include <stdio.h>
-
-#include "flash_common.cuh"
-#include "flash_sm90.cuh"
+#include "flash_ws.cuh"
 
 namespace flash {
 namespace {
@@ -244,13 +247,14 @@ __global__ void __launch_bounds__(kF32Threads)
 }
 
 // Store a warp's 16-row accumulator acc[n-tile][4] (rows r0 and r0 + 8 of
-// this thread) as T pairs at dst (row stride ss); rows >= rows are skipped.
-template <typename T>
+// this thread; its first nnd of N n-tiles) as T pairs at dst (row stride
+// ss); rows >= rows are skipped.
+template <typename T, int N>
 __device__ __forceinline__ void store_rows(T* dst, long long ss,
                                            const float (*acc)[4], int r0,
                                            int rows, int nnd, int t) {
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N; ++j) {
     if (j < nnd) {
       const int c = j * 8 + 2 * t;
       if (r0 < rows)
@@ -263,7 +267,9 @@ __device__ __forceinline__ void store_rows(T* dst, long long ss,
   }
 }
 
-template <typename T, typename Mask>
+// DMAX (128 or 256): the largest head dim the instantiation takes; a warp
+// holds DMAX / 8 n-tiles of dq accumulators (128 f32 a thread at 256).
+template <typename T, typename Mask, int DMAX>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
   constexpr int BQ = kMmaTile, BK = kMmaTile;
   const int d = p.d, ld = d + pad<T>();
@@ -301,9 +307,10 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
   const float scale2 = p.scale * kLog2e;
   const float nl0 = -lse_s[r0] * kLog2e, nl1 = -lse_s[r0 + 8] * kLog2e;
   const float dl0 = delta_s[r0], dl1 = delta_s[r0 + 8];
-  float dq[16][4];
+  float dq[DMAX / 8][4];
 #pragma unroll
-  for (int j = 0; j < 16; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+  for (int j = 0; j < DMAX / 8; ++j)
+    dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
 
   // the keys each of the two rows sees, and the key tiles the block visits
   const Mask mask(p, b);
@@ -322,7 +329,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
+    for (int kk = 0; kk < DMAX / 16; ++kk) {
       if (kk < nkd) {
         uint32_t aq[4], ad[4];
         frag_a(aq, qs, ld, warp * 16, kk * 16, lane);
@@ -358,7 +365,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
       uint32_t a[4];
       frag_a_from_acc<T>(a, s, kk);
 #pragma unroll
-      for (int j = 0; j < 16; j += 2) {
+      for (int j = 0; j < DMAX / 8; j += 2) {
         if (j < nnd) {
           uint32_t bb[4];
           frag_b_kn(bb, ks, ld, kk * 16, j * 8, lane);
@@ -369,15 +376,22 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_kernel(Params p) {
     }
   }
   T* dqg = static_cast<T*>(p.dq) + b * p.dq_st.b + h * p.dq_st.h;
-  store_rows<T>(dqg, p.dq_st.s, dq, qi0, p.sq, nnd, t);
+  store_rows<T, DMAX / 8>(dqg, p.dq_st.s, dq, qi0, p.sq, nnd, t);
 }
 
-template <typename T, typename Mask>
+// DMAX (128 or 256): the largest head dim the instantiation takes.  A warp
+// holds dK and dV for at most 128 columns (2 x 64 f32 a thread): above
+// D = 128 each block computes the columns [c0, c0 + 128) of its keys'
+// dK/dV only (blockIdx.z = batch x column chunks, `dkv_chunks`), and
+// recomputes S^T and dP^T over the full D for each chunk.
+template <typename T, typename Mask, int DMAX>
 __global__ void __launch_bounds__(kDkvWarps * 32)
     flash_dkv_kernel(Params p) {
   constexpr int BQ = kMmaTile, BK = kDkvWarps * 16, NT = kDkvWarps * 32;
   const int d = p.d, ld = d + pad<T>();
-  const int nkd = d / 16, nnd = d / 8;
+  const int chunks = (d + 127) / 128, c0 = blockIdx.z % chunks * 128;
+  // k-steps over D; n-tiles of this block's output columns
+  const int nkd = d / 16, nnd = min(d - c0, 128) / 8;
   extern __shared__ __align__(128) unsigned char smem[];
   Carver cv{smem};
   T* ks = cv.take<T>(BK * ld);
@@ -390,7 +404,7 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, t = lane & 3;
   const int ik = blockIdx.y;  // under causality tile 0 has the most work
-  const int hk = blockIdx.x, b = blockIdx.z;
+  const int hk = blockIdx.x, b = blockIdx.z / chunks;
   const int k0 = ik * BK;
   const T* kg = static_cast<const T*>(p.k) + b * p.k_st.b + hk * p.k_st.h;
   const T* vg = static_cast<const T*>(p.v) + b * p.v_st.b + hk * p.v_st.h;
@@ -432,7 +446,7 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
 #pragma unroll
         for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
         if (kk < nkd) {
           uint32_t ak[4], av[4];
           frag_a(ak, ks, ld, warp * 16, kk * 16, lane);
@@ -472,17 +486,17 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
         frag_a_from_acc<T>(ap[kk], st, kk);
         frag_a_from_acc<T>(ads[kk], dpt, kk);
       }
-      // dV += P^T dO and dK += dS^T Q
+      // dV += P^T dO and dK += dS^T Q (this block's columns)
 #pragma unroll
       for (int kk = 0; kk < BQ / 16; ++kk) {
 #pragma unroll
         for (int j = 0; j < 16; j += 2) {
           if (j < nnd) {
             uint32_t bb[4];
-            frag_b_kn(bb, dos, ld, kk * 16, j * 8, lane);
+            frag_b_kn(bb, dos, ld, kk * 16, c0 + j * 8, lane);
             mma16816<T>(dv[j], ap[kk], bb);
             mma16816<T>(dv[j + 1], ap[kk], bb + 2);
-            frag_b_kn(bb, qs, ld, kk * 16, j * 8, lane);
+            frag_b_kn(bb, qs, ld, kk * 16, c0 + j * 8, lane);
             mma16816<T>(dk[j], ads[kk], bb);
             mma16816<T>(dk[j + 1], ads[kk], bb + 2);
           }
@@ -490,10 +504,10 @@ __global__ void __launch_bounds__(kDkvWarps * 32)
       }
     }
   }
-  T* dkg = static_cast<T*>(p.dk) + b * p.dk_st.b + hk * p.dk_st.h;
-  T* dvg = static_cast<T*>(p.dv) + b * p.dv_st.b + hk * p.dv_st.h;
-  store_rows<T>(dkg, p.dk_st.s, dk, kj0, p.sk, nnd, t);
-  store_rows<T>(dvg, p.dv_st.s, dv, kj0, p.sk, nnd, t);
+  T* dkg = static_cast<T*>(p.dk) + b * p.dk_st.b + hk * p.dk_st.h + c0;
+  T* dvg = static_cast<T*>(p.dv) + b * p.dv_st.b + hk * p.dv_st.h + c0;
+  store_rows<T, 16>(dkg, p.dk_st.s, dk, kj0, p.sk, nnd, t);
+  store_rows<T, 16>(dvg, p.dv_st.s, dv, kj0, p.sk, nnd, t);
 }
 
 // ---------------------------------------------------------------------------
@@ -559,42 +573,13 @@ __global__ void __launch_bounds__(kDeltaThreads)
 }
 
 // ---------------------------------------------------------------------------
-// The warp-specialised wgmma + TMA kernels (16-bit, D = 64 or 128).
-// Warpgroup 0 is the producer (warp 0's lane 0 issues the TMA loads; in
+// The warp-specialised wgmma + TMA kernels (16-bit, D = 64 or 128;
+// scaffolding in flash_ws.cuh).  Warpgroup 0 is the producer (warp 0's lane 0 issues the TMA loads; in
 // the dk/dv kernel warp 1 stages each query tile's lse and delta);
 // warpgroups 1 and 2 are the consumers, 64 rows each.  Stage s of the ring
 // is filled when full[s] completes and free again when empty[s] does (one
 // arrival from every consumer thread).
 // ---------------------------------------------------------------------------
-
-constexpr int kWsThreads = 384;
-constexpr int kStages = 3;
-
-// The producer's last waits (bounded, see mbar_wait_or_trap): for the
-// resident tiles' barrier and for the consumers to free the ring's last
-// kStages fills, from the stage and phase its loop ended at.
-__device__ __forceinline__ void producer_drain(uint64_t* resident,
-                                               uint64_t* empty, int stage,
-                                               uint32_t phase) {
-  sm90::mbar_wait_or_trap(resident, 0);
-  for (int i = 0; i < kStages; ++i) {
-    sm90::mbar_wait_or_trap(&empty[stage], phase ^ 1);
-    if (++stage == kStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-}
-// 24 x 128 + 240 x 256 registers = the 168 x 384 a block of 384 threads
-// is given at launch (__launch_bounds__(384, 1))
-constexpr int kProducerRegs = 24, kConsumerRegs = 240;
-
-struct Sm90Args {
-  sm90::TmaView q, k, v, dout;
-  Params p;
-};
-
-constexpr int round1024(int n) { return (n + 1023) / 1024 * 1024; }
 
 // dk/dv: K and V (128 keys) resident; a stage holds Q and dO (64 rows) and
 // their rows' -lse log2(e) and delta.  The carve starts 1024-aligned
@@ -615,43 +600,6 @@ template <int D> struct DqSmem {
   static constexpr int kBars = 2 * kQ + kStages * kStage;
   static constexpr int kBytes = kBars + (2 * kStages + 1) * 8 + 1024;
 };
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-// A 64-row accumulator d[D / 2] (wgmma layout: rows r0 and r0 + 8 of this
-// thread) as T pairs at dst (row stride ss); rows >= rows are skipped.
-template <typename T, int D>
-__device__ __forceinline__ void store_acc(T* dst, long long ss,
-                                          const float* d, int r0, int rows,
-                                          int t) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    if (r0 < rows)
-      *reinterpret_cast<uint32_t*>(dst + r0 * ss + c) =
-          pack_f32<T>(d[4 * j], d[4 * j + 1]);
-    if (r0 + 8 < rows)
-      *reinterpret_cast<uint32_t*>(dst + (r0 + 8) * ss + c) =
-          pack_f32<T>(d[4 * j + 2], d[4 * j + 3]);
-  }
-}
-
-// The A fragments (four k-steps of 16 columns) of a 64 x 64 accumulator,
-// rounded to T: no data moves between lanes.
-template <typename T>
-__device__ __forceinline__ void acc_to_frags(uint32_t (*a)[4],
-                                             const float* d) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    a[kk][0] = pack_f32<T>(d[8 * kk], d[8 * kk + 1]);
-    a[kk][1] = pack_f32<T>(d[8 * kk + 2], d[8 * kk + 3]);
-    a[kk][2] = pack_f32<T>(d[8 * kk + 4], d[8 * kk + 5]);
-    a[kk][3] = pack_f32<T>(d[8 * kk + 6], d[8 * kk + 7]);
-  }
-}
 
 template <typename T, int D, typename Mask>
 __global__ void __launch_bounds__(kWsThreads, 1)
@@ -1016,29 +964,6 @@ int launch(K kernel, const A& args, dim3 grid, int threads, size_t smem,
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
-// The wgmma kernels take the 16-bit types at these head dims.
-bool ws_route(int d, int dtype) { return dtype != 0 && (d == 64 || d == 128); }
-
-// The tensor maps of q, k, v and dout; q/dout boxes of q_rows rows, k/v of
-// k_rows.  Returns 0 or an error code.
-int make_views(Sm90Args& a, int batch, int dtype, int q_rows, int k_rows) {
-  const Params& p = a.p;
-  const bool bf16 = dtype == 2;
-  const int kv_heads = p.heads / p.rep;
-  int e = sm90::encode_view(&a.q, p.q, bf16, batch, p.heads, p.sq, p.d,
-                            p.q_st.b, p.q_st.h, p.q_st.s, q_rows);
-  if (!e)
-    e = sm90::encode_view(&a.dout, p.dout, bf16, batch, p.heads, p.sq, p.d,
-                          p.do_st.b, p.do_st.h, p.do_st.s, q_rows);
-  if (!e)
-    e = sm90::encode_view(&a.k, p.k, bf16, batch, kv_heads, p.sk, p.d,
-                          p.k_st.b, p.k_st.h, p.k_st.s, k_rows);
-  if (!e)
-    e = sm90::encode_view(&a.v, p.v, bf16, batch, kv_heads, p.sk, p.d,
-                          p.v_st.b, p.v_st.h, p.v_st.s, k_rows);
-  return e;
-}
-
 template <typename T, int D, typename Mask>
 int launch_dq_ws(const Params& p, int batch, int dtype, cudaStream_t s) {
   using L = DqSmem<D>;
@@ -1068,7 +993,7 @@ int launch_dkv_ws(const Params& p, int batch, int dtype, cudaStream_t s) {
 // 17 % in dq, 3 % in dk/dv at B=1, H=32, S=4096, causal).
 template <typename Mask>
 int launch_dq(const Params& p, int batch, int dtype, cudaStream_t s) {
-  if (ws_route(p.d, dtype)) {
+  if (ws_route(p.d, dtype, false)) {
     if (dtype == 1)
       return p.d == 64 ? launch_dq_ws<__half, 64, Mask>(p, batch, dtype, s)
                        : launch_dq_ws<__half, 128, Mask>(p, batch, dtype, s);
@@ -1078,16 +1003,21 @@ int launch_dq(const Params& p, int batch, int dtype, cudaStream_t s) {
   }
   const dim3 f32_grid(p.heads, ceil_div(p.sq, kF32Tile), batch);
   const dim3 grid(p.heads, ceil_div(p.sq, kMmaTile), batch);
+  const bool wide = p.d > 128;
   switch (dtype) {
     case 0:
       return launch(flash_dq_f32_kernel<Mask>, p, f32_grid, kF32Threads,
                     dq_smem_f32(p.d), s);
     case 1:
-      return launch(flash_dq_kernel<__half, Mask>, p, grid, kMmaThreads,
-                    dq_smem_mma(p.d), s);
+      return wide ? launch(flash_dq_kernel<__half, Mask, 256>, p, grid,
+                           kMmaThreads, dq_smem_mma(p.d), s)
+                  : launch(flash_dq_kernel<__half, Mask, 128>, p, grid,
+                           kMmaThreads, dq_smem_mma(p.d), s);
     case 2:
-      return launch(flash_dq_kernel<__nv_bfloat16, Mask>, p, grid,
-                    kMmaThreads, dq_smem_mma(p.d), s);
+      return wide ? launch(flash_dq_kernel<__nv_bfloat16, Mask, 256>, p, grid,
+                           kMmaThreads, dq_smem_mma(p.d), s)
+                  : launch(flash_dq_kernel<__nv_bfloat16, Mask, 128>, p, grid,
+                           kMmaThreads, dq_smem_mma(p.d), s);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -1095,7 +1025,7 @@ int launch_dq(const Params& p, int batch, int dtype, cudaStream_t s) {
 
 template <typename Mask>
 int launch_dkv(const Params& p, int batch, int dtype, cudaStream_t s) {
-  if (ws_route(p.d, dtype)) {
+  if (ws_route(p.d, dtype, false)) {
     if (dtype == 1)
       return p.d == 64 ? launch_dkv_ws<__half, 64, Mask>(p, batch, dtype, s)
                        : launch_dkv_ws<__half, 128, Mask>(p, batch, dtype, s);
@@ -1105,17 +1035,24 @@ int launch_dkv(const Params& p, int batch, int dtype, cudaStream_t s) {
   }
   const int kv_heads = p.heads / p.rep;
   const dim3 f32_grid(kv_heads, ceil_div(p.sk, kF32Tile), batch);
-  const dim3 grid(kv_heads, ceil_div(p.sk, kDkvWarps * 16), batch);
+  // the mma.sync kernel's blocks: one for each chunk of 128 columns
+  const dim3 grid(kv_heads, ceil_div(p.sk, kDkvWarps * 16),
+                  batch * ceil_div(p.d, 128));
+  const bool wide = p.d > 128;
   switch (dtype) {
     case 0:
       return launch(flash_dkv_f32_kernel<Mask>, p, f32_grid, kF32Threads,
                     dkv_smem_f32(p.d), s);
     case 1:
-      return launch(flash_dkv_kernel<__half, Mask>, p, grid, kDkvWarps * 32,
-                    dkv_smem_mma(p.d), s);
+      return wide ? launch(flash_dkv_kernel<__half, Mask, 256>, p, grid,
+                           kDkvWarps * 32, dkv_smem_mma(p.d), s)
+                  : launch(flash_dkv_kernel<__half, Mask, 128>, p, grid,
+                           kDkvWarps * 32, dkv_smem_mma(p.d), s);
     case 2:
-      return launch(flash_dkv_kernel<__nv_bfloat16, Mask>, p, grid,
-                    kDkvWarps * 32, dkv_smem_mma(p.d), s);
+      return wide ? launch(flash_dkv_kernel<__nv_bfloat16, Mask, 256>, p,
+                           grid, kDkvWarps * 32, dkv_smem_mma(p.d), s)
+                  : launch(flash_dkv_kernel<__nv_bfloat16, Mask, 128>, p,
+                           grid, kDkvWarps * 32, dkv_smem_mma(p.d), s);
     default:
       return int(cudaErrorInvalidValue);
   }
@@ -1135,26 +1072,18 @@ extern "C" {
 // 1 float16, 2 bfloat16.
 size_t flash_dq_smem_bytes(int d, int dtype) {
   using namespace flash;
-  if (ws_route(d, dtype)) return ws_smem(d, true);
+  if (ws_route(d, dtype, false)) return ws_smem(d, true);
   return dtype == 0 ? dq_smem_f32(d) : dq_smem_mma(d);
 }
 
 size_t flash_dkv_smem_bytes(int d, int dtype) {
   using namespace flash;
-  if (ws_route(d, dtype)) return ws_smem(d, false);
+  if (ws_route(d, dtype, false)) return ws_smem(d, false);
   return dtype == 0 ? dkv_smem_f32(d) : dkv_smem_mma(d);
 }
 
 const char* flash_bwd_error_string(int code) {
-  static char buf[96];
-  if (code >= flash::sm90::kNoEncoder)
-    return "cuTensorMapEncodeTiled is not available from the driver";
-  if (code >= flash::sm90::kEncodeError) {
-    snprintf(buf, sizeof(buf), "cuTensorMapEncodeTiled refused the view "
-             "(CUresult %d)", code - flash::sm90::kEncodeError);
-    return buf;
-  }
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return flash::ws_error_string(code);
 }
 
 // Each entry point returns cudaGetLastError() after its launch (0 =

@@ -10,8 +10,9 @@
 //   documented fragment layouts of the PTX ISA, and probabilities pass
 //   from the score accumulators to the next product's operand without
 //   leaving registers.  Only the operand tiles (Q, K, V, dO) are staged in
-//   shared memory.  The backward at head_dim 64 and 128 has kernels of
-//   its own on wgmma and TMA (flash_bwd.cu, flash_sm90.cuh).
+//   shared memory.  The forward at head_dim 64, 128 and 256 and the
+//   backward at 64 and 128 have kernels of their own on wgmma and TMA
+//   (flash_ws.cuh, flash_sm90.cuh).
 // - float32 inputs: the same algorithm with plain f32 FMA out of shared
 //   memory (`block_mm_f32`), for exact agreement with the plain version
 //   (no TF32).
@@ -391,8 +392,12 @@ struct SegmentMask {
 // at or past the length are not visited.
 struct LengthMask {
   int sq, len, causal;
+  // the length from lane 0: the compiler then knows it is the same in
+  // every lane (a per-lane load left ptxas serialising the wgmma kernel)
   __device__ LengthMask(const Params& p, int b)
-      : sq(p.sq), len(min(max(p.kv_lens[b], 0), p.sk)), causal(p.causal) {}
+      : sq(p.sq),
+        len(__shfl_sync(0xffffffffu, min(max(p.kv_lens[b], 0), p.sk), 0)),
+        causal(p.causal) {}
   __device__ Range keys(int qi) const {
     return {0, qi < sq ? (causal ? min(qi + 1, len) : len) : 0};
   }

@@ -51,9 +51,9 @@ __all__ = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
            "flash_bwd_delta_ref", "flash_refusal", "padded_head_dim",
            "MAX_HEAD_DIM"]
 
-# the kernels take D in 16-element steps (one mma.sync k-step, and two
-# n-tiles of 8 for each ldmatrix.x4), up to the 16 n-tiles a warp holds
-MAX_HEAD_DIM = 128
+# the kernels take D in 16-element steps (one mma.sync or wgmma k-step, and
+# two n-tiles of 8 for each ldmatrix.x4), up to the reference kernels' 256
+MAX_HEAD_DIM = 256
 _HEAD_DIM_STEP = 16
 _BIG_NEG = -1e30   # finite, as the kernels: masked scores, never -inf
 _MAX_SMEM_BYTES = 232448
@@ -69,7 +69,7 @@ def flash_refusal(seq_q: int, seq_k: int, head_dim: int, dtype,
     counterpart of the reference's ``fallback_reason``.  In this order:
     ``"causal_rect"`` (causal with Sq != Sk: the kernels' mask is the
     square lower triangle), ``"dtype"`` (not float32, float16 or bfloat16)
-    and ``"head_dim"`` (not a multiple of 16 in 16..128).  The wrappers
+    and ``"head_dim"`` (not a multiple of 16 in 16..256).  The wrappers
     raise on the reason; the attention functionals route on it."""
     if causal and seq_q != seq_k:
         return "causal_rect"

@@ -4,10 +4,11 @@ give the reference's result on every route.
 ``scaled_dot_product_attention`` and ``flash_attn_unpadded``
 (paddle_tpu_torch/nn/functional/attention.py) against the reference's
 functions of the same names on the same numpy inputs, forward and
-gradients: head dims below 128 that are not a multiple of 16 (zero-padded
-into the flash path), head dims above 128 (the plain path on CPU tensors),
-causal with Sq < Sk and float64 (the plain path); each call's route is read
-from ``ROUTE_COUNTS``.  The reference takes its plain paths here (its
+gradients: head dims up to 256 that are not a multiple of 16 (zero-padded
+into the flash path), head dims 129..256 (the flash path, as the
+reference's kernel takes them), head dims above 256, causal with Sq < Sk
+and float64 (the plain path); each call's route is read from
+``ROUTE_COUNTS``.  The reference takes its plain paths here (its
 Pallas gate needs a TPU); the port's flash path on CPU tensors is its
 kernels' plain versions.
 
@@ -33,7 +34,8 @@ from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                            llama_tiny_config,
                                            load_reference_arrays)
 from paddle_tpu_torch.nn import functional as F
-from paddle_tpu_torch.nn.functional import ROUTE_COUNTS, reset_route_counts
+from paddle_tpu_torch.nn.functional import (ROUTE_COUNTS, attention,
+                                            reset_route_counts)
 from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS
 
 TOL = {np.float32: 1e-5, np.float64: 1e-10}
@@ -96,7 +98,10 @@ SDPA_CASES = {
                            "sdpa_plain:causal_rect"),
     "d8": (16, 16, 8, True, np.float32, "sdpa_flash_padded"),
     "d72": (16, 16, 72, True, np.float32, "sdpa_flash_padded"),
-    "d256": (16, 16, 256, False, np.float32, "sdpa_plain:head_dim"),
+    "d136": (16, 16, 136, True, np.float32, "sdpa_flash_padded"),
+    "d192-full": (16, 16, 192, False, np.float32, "sdpa_flash"),
+    "d256": (16, 16, 256, False, np.float32, "sdpa_flash"),
+    "d256-causal": (16, 16, 256, True, np.float32, "sdpa_flash"),
     "d264": (16, 16, 264, True, np.float32, "sdpa_plain:head_dim"),
     "float64": (16, 16, 16, True, np.float64, "sdpa_plain:dtype"),
 }
@@ -145,7 +150,8 @@ def test_sdpa_counts_its_flash_route_and_accepts_name():
 # (T, D, dtype, cu, expected route); 4 query heads over 2 kv heads
 VARLEN_CASES = {
     "d8": (40, 8, np.float32, (0, 7, 30, 40), "varlen_flash_padded"),
-    "d256": (40, 256, np.float32, (0, 1, 25, 40), "varlen_plain:head_dim"),
+    "d136": (40, 136, np.float32, (0, 9, 33, 40), "varlen_flash_padded"),
+    "d256": (40, 256, np.float32, (0, 1, 25, 40), "varlen_flash"),
     "float64": (40, 16, np.float64, (0, 13, 40), "varlen_plain:dtype"),
 }
 
@@ -198,16 +204,21 @@ def test_llama_with_head_dim_8_matches_the_reference(_restore_reference_rng):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("d", [136, 256])
-def test_head_dims_no_kernel_takes_raise_off_the_cpu(d):
-    """head_dim 129..256: the reference's kernel takes it and no kernel here
-    does yet, so a tensor off the CPU raises (a meta tensor stands in for a
-    CUDA one) instead of taking the plain path; nothing is counted."""
+@pytest.mark.parametrize("d", [136, 192, 256])
+def test_head_dims_above_128_take_the_flash_kernels_off_the_cpu(d):
+    """head_dim 129..256: the reference's kernel takes it, and so do the
+    kernels here (padded to the next multiple of 16), so the gate sends a
+    tensor off the CPU (a meta tensor stands in for a CUDA one) to the
+    flash kernels at the padded dim and counts the route; head_dim 272
+    still takes the plain path, as the reference routes it."""
+    dp = -(-d // 16) * 16
+    route = "flash" if dp == d else "flash_padded"
     q = torch.empty(1, 16, 4, d, device="meta")
     k = torch.empty(1, 16, 2, d, device="meta")
-    with pytest.raises(ValueError, match=f"head_dim {d} is not supported"):
-        F.scaled_dot_product_attention(q, k, k, is_causal=True)
-    cu = torch.tensor([0, 16], dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match=f"head_dim {d} is not supported"):
-        F.flash_attn_unpadded(q[0], k[0], k[0], cu, cu, 16, 16, 0.1)
-    assert ROUTE_COUNTS == {}
+    assert attention._flash_gate("sdpa", q, k, True) == dp
+    assert attention._flash_gate("varlen", q[0], k[0], False) == dp
+    assert ROUTE_COUNTS == {f"sdpa_{route}": 1, f"varlen_{route}": 1}
+    reset_route_counts()
+    q = torch.empty(1, 16, 4, 272, device="meta")
+    assert attention._flash_gate("sdpa", q, q, True) is None
+    assert ROUTE_COUNTS == {"sdpa_plain:head_dim": 1}

@@ -118,9 +118,10 @@ def flash_close(got, want, dtype):
         assert diff <= bound, (diff, bound)
 
 
-# 16-bit D 64 and 128 take the wgmma/TMA backward kernels, other D (96)
-# the mma.sync ones, float32 the f32 ones: every route, at the training
-# shape, GQA, partial last tiles of 64 and 128 rows (S=4000), Sq != Sk
+# 16-bit D 64 and 128 take the wgmma/TMA kernels (the forward at 256
+# too), other D (96, 144, 192; the backward at 256) the mma.sync ones,
+# float32 the f32 ones: every route, at the training shape, GQA, partial
+# last tiles of 64 and 128 rows (S=4000), Sq != Sk
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,b,h,hkv,s,d,causal,sk", [
     (torch.bfloat16, 1, 8, 8, 1024, 128, True, None),
@@ -135,10 +136,19 @@ def flash_close(got, want, dtype):
     (torch.bfloat16, 1, 4, 4, 1000, 128, False, 1500),
     (torch.float16, 2, 16, 16, 512, 64, True, None),
     (torch.bfloat16, 1, 4, 4, 333, 96, True, None),
+    (torch.bfloat16, 1, 32, 8, 4000, 256, True, None),
+    (torch.float16, 2, 4, 2, 1000, 256, False, None),
+    (torch.bfloat16, 2, 8, 2, 1, 256, True, None),
+    (torch.float16, 1, 4, 4, 777, 128, False, None),
+    (torch.bfloat16, 1, 4, 2, 500, 144, True, None),
+    (torch.float16, 1, 4, 4, 300, 192, False, 450),
+    (torch.float32, 1, 4, 2, 130, 256, True, None),
 ], ids=["bf16_mha", "bf16_gqa_ragged", "f16_s1", "bf16_full_d64",
         "f32_gqa", "f32_full_d16", "bf16_training_shape", "bf16_gqa_32_8",
         "bf16_s4000", "bf16_full_sq1000_sk1500", "f16_b2_d64",
-        "bf16_d96_mma_route"])
+        "bf16_d96_mma_route", "bf16_d256_gqa_s4000", "f16_d256_full",
+        "bf16_d256_s1", "f16_d128_full", "bf16_d144_mma_route",
+        "f16_d192_full_rect", "f32_d256"])
 def test_flash_kernels_match_plain_versions(cuda_device, dtype, b, h, hkv,
                                             s, d, causal, sk):
     q, k, v, do = flash_inputs(cuda_device, dtype, b, h, hkv, s, d, sk=sk)
@@ -185,14 +195,15 @@ def test_sdpa_on_the_card_always_launches_the_flash_kernels(cuda_device):
 
 @pytest.mark.gpu
 def test_sdpa_on_the_card_routes_by_shape(cuda_device):
-    """head_dim 72 takes the flash kernels zero-padded to 80 and head_dim
-    128 as it is: each launches the flash forward, dq and dk/dv once and
-    the delta pre-pass once, and matches the plain sdpa in f32 (the bf16
-    flash tolerance).  Causal with Sq < Sk goes to the plain sdpa, launching
-    nothing, as the reference routes it.  head_dim 136, which the
-    reference's kernel takes and no kernel here does, raises."""
+    """head_dim 72 and 136 take the flash kernels zero-padded to 80 and 144,
+    head_dim 128 and 256 as they are: each launches the flash forward, dq
+    and dk/dv once and the delta pre-pass once, and matches the plain sdpa
+    in f32 (the bf16 flash tolerance).  Causal with Sq < Sk and head_dim
+    272 go to the plain sdpa, launching nothing, as the reference routes
+    them."""
     reset_route_counts()
-    for d, sq in ((72, 64), (128, 64), (64, 32)):
+    for d, sq in ((72, 64), (128, 64), (64, 32), (136, 64), (256, 64),
+                  (272, 64)):
         q, k, v, do = (x.transpose(1, 2).contiguous().requires_grad_()
                        for x in flash_inputs(cuda_device, torch.bfloat16, 2,
                                              4, 2, 64, d))
@@ -203,19 +214,17 @@ def test_sdpa_on_the_card_routes_by_shape(cuda_device):
         torch.cuda.synchronize()
         launched = {n: LAUNCH_COUNTS[n] - before[n] for n in
                     ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")}
-        assert launched == {n: int(sq == 64) for n in launched}, (d, launched)
+        flash = sq == 64 and d <= 256
+        assert launched == {n: int(flash) for n in launched}, (d, launched)
         assert out.shape == q.shape and k.grad.shape == k.shape
         assert torch.isfinite(q.grad.float()).all()
         want = sdpa(q.detach().float(), k.detach().float(),
                     v.detach().float(), scale=1.0 / math.sqrt(d),
                     is_causal=True)
         flash_close(out.detach(), want, torch.bfloat16)
-    assert ROUTE_COUNTS == {"sdpa_flash_padded": 1, "sdpa_flash": 1,
-                            "sdpa_plain:causal_rect": 1}
-    q, k, _, _ = flash_inputs(cuda_device, torch.bfloat16, 1, 4, 2, 16, 136)
-    with pytest.raises(ValueError, match="head_dim 136 is not supported"):
-        scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                     k.transpose(1, 2), is_causal=True)
+    assert ROUTE_COUNTS == {"sdpa_flash_padded": 2, "sdpa_flash": 2,
+                            "sdpa_plain:causal_rect": 1,
+                            "sdpa_plain:head_dim": 1}
     reset_route_counts()
 
 
@@ -230,6 +239,24 @@ def test_flash_kernels_refuse_what_they_cannot_take(cuda_device):
     o = torch.zeros(1, 4, 16, 20, dtype=torch.bfloat16, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 8"):
         fa.flash_bwd_delta(o, o)
+    # head_dim up to 256 (the reference's kernels' limit), not 272
+    for d, ok in ((272, False), (256, True)):
+        q, k, v, do = flash_inputs(cuda_device, torch.bfloat16, 1, 4, 2, 16,
+                                   d)
+        before = dict(LAUNCH_COUNTS)
+        if not ok:
+            with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+                fa.flash_attention_fwd(q, k, v, True)
+            with pytest.raises(ValueError, match="multiple of 16 up to 256"):
+                fa.flash_attention_bwd(q, k, v, q, q[..., 0].float(), do,
+                                       True)
+        else:
+            out, lse = fa.flash_attention_fwd(q, k, v, True)
+            fa.flash_attention_bwd(q, k, v, out, lse, do, True)
+        torch.cuda.synchronize()
+        assert {n: LAUNCH_COUNTS[n] - before[n] for n in
+                ("flash_fwd", "flash_dq", "flash_dkv")} == \
+            {n: int(ok) for n in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
 def quant_rpa_inputs(device, dtype, heads, kv_heads, d, page, lens, seed=0):
@@ -346,9 +373,13 @@ PACKED_CU = [0, 1531, 2531, 3231, 3748, 4003, 4096]
     (torch.bfloat16, 32, 32, 4096, 128, True, PACKED_CU),
     (torch.bfloat16, 32, 32, 4096, 128, False, PACKED_CU),
     (torch.bfloat16, 32, 8, 4096, 128, True, PACKED_CU),
+    (torch.bfloat16, 8, 2, 1000, 256, True, [0, 300, 301, 700, 1000]),
+    (torch.float16, 4, 4, 777, 256, False, [0, 100, 400]),
+    (torch.float32, 4, 2, 200, 256, True, [0, 50, 120, 200]),
 ], ids=["bf16_causal_one_token_doc", "bf16_gqa_full_tail",
         "f16_single_tokens", "f32_gqa", "f32_full_d16", "bf16_packed",
-        "bf16_packed_full", "bf16_packed_gqa"])
+        "bf16_packed_full", "bf16_packed_gqa", "bf16_d256_gqa",
+        "f16_d256_full_tail", "f32_d256"])
 def test_varlen_kernels_match_plain_versions(cuda_device, dtype, h, hkv, t,
                                              d, causal, cu):
     q, k, v, do = (x[0] for x in flash_inputs(cuda_device, dtype, 1, h, hkv,

@@ -34,7 +34,7 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 JNP = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16}
 
 CASES = [(s, d, causal, dt)
-         for s, d in ((128, 16), (256, 64))
+         for s, d in ((128, 16), (256, 64), (128, 256))
          for causal in (False, True)
          for dt in (torch.float32, torch.bfloat16)]
 IDS = [f"s{s}-d{d}-{'causal' if c else 'full'}-{str(dt)[6:]}"
@@ -228,8 +228,8 @@ def test_plain_sdpa_matches_reference_sdpa_with_mask():
 
 
 @pytest.mark.parametrize("bad,match", [
-    (dict(d=24), "multiple of 16 up to 128"),
-    (dict(d=256), "multiple of 16 up to 128"),
+    (dict(d=24), "multiple of 16 up to 256"),
+    (dict(d=272), "multiple of 16 up to 256"),
     (dict(kv_heads=3), "multiple of kv heads"),
     (dict(causal_sk=8), "Sq == Sk"),
     (dict(dtype=torch.float64), "unsupported dtype"),

@@ -14,9 +14,10 @@ package of its own), so trees whose C entry points differ compare through
 the same Python calls.  In the given order, each tree times (CUDA events,
 L2 flushed, median of 50: ``chip_smoke.time_ms``) the dense forward, dq,
 dk/dv and the whole backward (``flash_attention_bwd``) at the training
-shape (B=1, H=32, S=4096, D=128, bf16, causal) and, where the tree has
-them, the varlen forward, dq, dk/dv and backward at the packed shape
-(T=4096 in six documents).  dq and dk/dv are the wrappers called alone,
+shape (B=1, H=32, S=4096, D=128, bf16, causal), where the tree takes it
+the dense forward and backward at head_dim 256 (B=1, H=8, S=4096, bf16,
+causal) and, where the tree has them, the varlen forward, dq, dk/dv and
+backward at the packed shape (T=4096 in six documents).  dq and dk/dv are the wrappers called alone,
 so where a tree has the delta pre-pass each of them includes one.  Each
 line also holds the outputs' largest relative L2 distance from this
 tree's plain versions.  Run it from the repository root on a machine with
@@ -28,6 +29,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import importlib
+import re
 import subprocess
 import sys
 import time
@@ -46,21 +48,28 @@ from paddle_tpu_torch.ops.cuda import flash_attention as ref  # noqa: E402
 
 def build(trees):
     """lib<name>.so of each tree's flash_*.cu, all nvcc processes started
-    together."""
+    together; prints each tree's kernels that ptxas made spill."""
     procs, out = [], []
     for i, tree in enumerate(trees):
         dst = ROOT / "build" / "kernels-ab" / str(i)
         dst.mkdir(parents=True, exist_ok=True)
         out.append(dst)
         for src in sorted(Path(tree).glob("flash_*.cu")):
-            procs.append(subprocess.Popen(
+            procs.append((i, subprocess.Popen(
                 [_build._nvcc(), *_build._NVCC_FLAGS, "-o",
                  str(dst / f"lib{src.stem}.so"), str(src)],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for p in procs:
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    for i, p in procs:
         text, _ = p.communicate()
         if p.returncode:
             raise RuntimeError(f"nvcc failed:\n{text}")
+        kernel = None
+        for line in text.splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            kernel = m.group(1) if m else kernel
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and int(m.group(1)) and kernel:
+                print(f"tree {i}: {kernel} spills {m.group(1)} bytes")
     return out
 
 
@@ -111,6 +120,11 @@ def main() -> int:
     pq, pk, pv, pdo = (x[0] for x in (q, k, v, do))
     pout, plse = ref.varlen_flash_fwd_ref(pq, pk, pv, cu, True)
     pwant = ref.varlen_flash_bwd_ref(pq, pk, pv, cu, pout, plse, pdo, True)
+    wq, wk, wv, wdo = (torch.randn(1, 8, 4096, 256, generator=g,
+                                   device="cuda").to(torch.bfloat16)
+                       for _ in range(4))
+    wout, wlse = ref.flash_attention_fwd_ref(wq, wk, wv, True)
+    wwant = ref.flash_attention_bwd_ref(wq, wk, wv, wout, wlse, wdo, True)
     for i in order:
         fa = mods[i]
         ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(
@@ -124,6 +138,16 @@ def main() -> int:
         err = max([rel(fa.flash_attention_fwd(q, k, v, True)[0], out)]
                   + [rel(a, b) for a, b in zip(fa.flash_attention_bwd(
                       q, k, v, out, lse, do, True), want)])
+        if fa.MAX_HEAD_DIM >= 256:
+            ms.update({
+                "d256_fwd": time_ms(lambda: fa.flash_attention_fwd(
+                    wq, wk, wv, True)),
+                "d256_bwd": time_ms(lambda: fa.flash_attention_bwd(
+                    wq, wk, wv, wout, wlse, wdo, True))})
+            err = max([err, rel(fa.flash_attention_fwd(wq, wk, wv,
+                                                       True)[0], wout)]
+                      + [rel(a, b) for a, b in zip(fa.flash_attention_bwd(
+                          wq, wk, wv, wout, wlse, wdo, True), wwant)])
         if hasattr(fa, "varlen_flash_bwd"):
             ms.update({
                 "varlen_fwd": time_ms(lambda: fa.varlen_flash_fwd(
