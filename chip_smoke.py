@@ -17,9 +17,10 @@ and prints no result line):
    kernel, plain and library times with CUDA events (L2 flushed between
    launches) and the card's bound for the same work (the ragged flash
    forward, which no path calls, at the serving chunk shape; the flash
-   kernels also at head_dim 256); the attention functionals at head_dim
-   136, 192, 256 and 272 on the card against the same calls on the CPU
-   (the kernels' plain versions), with their routes;
+   kernels also at head_dim 256; the decode kernels also at the served
+   decode's own lengths and at a long context); the attention
+   functionals at head_dim 136, 192, 256 and 272 on the card against the
+   same calls on the CPU (the kernels' plain versions), with their routes;
 4. serve  — Llama-7B at full width and depth (random weights from a seed,
    bf16) behind ``ServingEngine``: 10 greedy requests, launch counts read
    around the run, first-decode-step logits held against an engine on the
@@ -169,11 +170,12 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 def build_report(lib: str, info: dict) -> None:
     """ptxas's registers and spill bytes of each kernel of a library (it
-    raises where a warp-specialised kernel or a head_dim-256 instantiation
-    spills) and ptxas's warnings that it serialised wgmma; for libflash_fwd
-    and libflash_bwd also the wgmma (HGMMA) and TMA-load (UTMALDG)
-    instructions in their SASS, which show that their 16-bit kernels at D
-    64/128 (the forward's at 256 too) are the warp-specialised ones."""
+    raises where a warp-specialised kernel, a head_dim-256 instantiation or
+    a decode kernel spills) and ptxas's warnings that it serialised wgmma;
+    for libflash_fwd and libflash_bwd also the wgmma (HGMMA) and TMA-load
+    (UTMALDG) instructions in their SASS, which show that their 16-bit
+    kernels at D 64/128 (the forward's at 256 too) are the
+    warp-specialised ones."""
     from paddle_tpu_torch.ops.cuda import _build
     tools = Path(_build._nvcc()).parent
     kernel, rows = None, {}
@@ -197,12 +199,17 @@ def build_report(lib: str, info: dict) -> None:
         r = rows[kernel]
         log(f"  {lib}: {name}: {r.get('regs')} registers, "
             f"{r.get('spill', 0)} bytes spill stores")
-        # the wgmma kernels, and the mma.sync kernels' head_dim-256 ones
-        if "_ws_" in kernel or re.search(r", 256>", name):
+        # the wgmma kernels, the mma.sync kernels' head_dim-256 ones and
+        # every decode kernel
+        if ("_ws_" in kernel or re.search(r", 256>", name)
+                or lib == "rpa_decode"):
             must_not_spill.append((name, r.get("spill", 0)))
     for line in info["ptxas"].splitlines():
         if "Performance Loss" in line or "serialized" in line:
             log(f"  {lib}: ptxas: {line.strip()}")
+    if lib == "rpa_decode" and any(n for _, n in must_not_spill):
+        raise AssertionError("librpa_decode: kernels spill: " + "; ".join(
+            f"{n} {b} bytes" for n, b in must_not_spill if b))
     if lib in ("flash_fwd", "flash_bwd"):
         sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
                                info["path"]],
@@ -244,14 +251,31 @@ def rpa_inputs(batch, heads, kv_heads, d, page, max_pages, num_pages, lens,
             torch.tensor(lens, dtype=torch.int32, device="cuda"))
 
 
-def rpa_bound_ms(q, k, lens, page, bw):
+# the serving shape's decode lengths: an inert row, length 1, lengths at
+# and past a page boundary, a full table of 64 pages
+SERVE_LENS = [0, 1, 16, 17, 127, 300, 640, 1024]
+
+
+def quant_pools(k, v):
+    """int8 codes and f32 scales of f32 pools (quantize_kv_rows), page 0
+    filled with garbage codes and scales a correct kernel never reads:
+    ((k codes, k scales), (v codes, v scales))."""
+    from paddle_tpu_torch.quantize.core import quantize_kv_rows
+    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    kq[0], vq[0], ks[0], vs[0] = 127, -127, 300.0, 300.0
+    return (kq, ks), (vq, vs)
+
+
+def rpa_bound_ms(q, k, lens, page, bw, scaled=False):
     """Least time for the work these inputs need: every K/V row of the
-    valid tokens, q, the output and the used table entries moved once, or
-    the QK and PV multiply-adds at the input type's dense peak."""
+    valid tokens (with its f32 scale, for int8 pools), q, the output and
+    the used table entries moved once, or the QK and PV multiply-adds at
+    q's type's dense peak."""
     b, h, d = q.shape
     hkv, el = k.shape[2], k.element_size()
     tokens = int(sum(lens))
-    nbytes = (2 * tokens * hkv * d * el + 2 * b * h * d * el
+    nbytes = (2 * tokens * hkv * (d * el + 4 * scaled)
+              + 2 * b * h * d * q.element_size()
               + 4 * (b + sum(math.ceil(n / page) for n in lens)))
     ops = 4 * tokens * h * d
     t_bytes = nbytes / bw * 1e3
@@ -289,12 +313,10 @@ def phase_kernel(card, bw):
         ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
     bf16 = torch.bfloat16
     # the serving phase's decode shape: B=8, H=Hkv=32, D=128, page 16,
-    # 2048 pages, tables 64 wide (max_seq_len 1024); ragged lengths with an
-    # inert row, length 1, lengths at and past a page boundary, a full table
-    serve_lens = [0, 1, 16, 17, 127, 300, 640, 1024]
+    # 2048 pages, tables 64 wide (max_seq_len 1024), SERVE_LENS
     main = rpa_case("serving shape, MHA", 8, 32, 32, 128, 16, 64, 2048,
-                    serve_lens, bf16, SEED)
-    rpa_case("GQA 32q/8kv", 8, 32, 8, 128, 16, 64, 2048, serve_lens, bf16,
+                    SERVE_LENS, bf16, SEED)
+    rpa_case("GQA 32q/8kv", 8, 32, 8, 128, 16, 64, 2048, SERVE_LENS, bf16,
              SEED + 1)
     rpa_case("float32", 8, 32, 32, 128, 16, 64, 512,
              [0, 1, 15, 16, 33, 200, 511, 1000], torch.float32, SEED + 2)
@@ -318,11 +340,11 @@ def phase_kernel(card, bw):
     q4 = q[:, :, None, :]
     library_ms = time_ms(lambda: tf.scaled_dot_product_attention(
         q4, kd, vd, attn_mask=mask))
-    bound_ms, bound_by = rpa_bound_ms(q, k, serve_lens, k.shape[1], bw)
-    log(f"  timing at the serving shape ({card}): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library (SDPA on pre-gathered dense "
-        f"K/V, gather excluded) {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms by {bound_by}")
+    bound_ms, bound_by = rpa_bound_ms(q, k, SERVE_LENS, k.shape[1], bw)
+    log(f"  timing at the serving shape ({card}): kernel {ms:.4f} ms "
+        f"({bound_ms / ms:.1%} of the bound), plain {plain_ms:.4f} ms, "
+        f"library (SDPA on pre-gathered dense K/V, gather excluded) "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}")
     return {"name": "rpa_decode", "route": "cuda",
             "source": "paddle_tpu_torch/ops/cuda/csrc/rpa_decode.cu",
             "replaces": "paddle_tpu/ops/pallas/attention.py:885",
@@ -966,12 +988,10 @@ def rpa_quant_case(label, batch, heads, kv_heads, d, page, max_pages,
     scales) against its plain version."""
     from paddle_tpu_torch.ops.cuda.attention import (
         ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
-    from paddle_tpu_torch.quantize.core import quantize_kv_rows
     q, k, v, bt, sl = rpa_inputs(batch, heads, kv_heads, d, page, max_pages,
                                  num_pages, lens, torch.float32, seed)
-    (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
+    (kq, ks), (vq, vs) = quant_pools(k, v)
     del k, v
-    kq[0], vq[0], ks[0], vs[0] = 127, -127, 300.0, 300.0
     q = q.to(dtype)
     got = ragged_paged_attention_decode(q, kq, vq, bt, sl, k_scales=ks,
                                         v_scales=vs)
@@ -1063,12 +1083,11 @@ def phase_quant_kernels(card, bw):
                      "launches": None, "max_abs_err": max(errs), "ms": ms,
                      "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                      "library_ms": lib})
-    serve_lens = [0, 1, 16, 17, 127, 300, 640, 1024]
     main, err = rpa_quant_case("serving shape, MHA", 8, 32, 32, 128, 16, 64,
-                               2048, serve_lens, bf16, SEED + 80)
+                               2048, SERVE_LENS, bf16, SEED + 80)
     errs = [err]
     for i, case in enumerate([
-            ("GQA 32q/8kv", 8, 32, 8, 128, 16, 64, 2048, serve_lens, bf16),
+            ("GQA 32q/8kv", 8, 32, 8, 128, 16, 64, 2048, SERVE_LENS, bf16),
             ("float32", 8, 32, 32, 128, 16, 64, 512,
              [0, 1, 15, 16, 33, 200, 511, 1000], f32),
             ("edge: odd page size, D=100, fp16, GQA 12q/4kv", 5, 12, 4, 100,
@@ -1092,16 +1111,11 @@ def phase_quant_kernels(card, bw):
             < sl.long()[:, None])[:, None, None, :]
     lib = time_ms(lambda: tf.scaled_dot_product_attention(
         q[:, :, None, :], kd, vd, attn_mask=mask))
-    tokens = int(sum(serve_lens))
-    nbytes = (2 * tokens * hkv * d + 2 * tokens * hkv * 4 + 2 * b * h * d * 2
-              + 4 * (b + sum(math.ceil(n / 16) for n in serve_lens)))
-    t_bytes = nbytes / bw * 1e3
-    t_ops = 4 * tokens * h * d / PEAK_OPS[bf16] * 1e3
-    bound, by = (t_bytes, "bytes") if t_bytes >= t_ops else \
-        (t_ops, "operations")
+    bound, by = rpa_bound_ms(q, kq, SERVE_LENS, 16, bw, scaled=True)
     log(f"  [{card}] rpa_decode_quant at the serving shape: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library (SDPA on pre-gathered "
-        f"dequantized dense K/V) {lib:.4f} ms, bound {bound:.4f} ms ({by})")
+        f"{ms:.4f} ms ({bound / ms:.1%} of the bound), plain {plain:.4f} "
+        f"ms, library (SDPA on pre-gathered dequantized dense K/V) "
+        f"{lib:.4f} ms, bound {bound:.4f} ms ({by})")
     rows.append({"name": "rpa_decode_quant", "route": "cuda",
                  "source": "paddle_tpu_torch/ops/cuda/csrc/rpa_decode.cu",
                  "replaces": "paddle_tpu/ops/pallas/attention.py:896",
@@ -1109,6 +1123,65 @@ def phase_quant_kernels(card, bw):
                  "plain_ms": plain, "bound_ms": bound, "bound_by": by,
                  "library_ms": lib})
     return rows
+
+
+def decode_shapes(vocab: int):
+    """The decode kernels' further timing shapes (label, lengths, table
+    width): the served decode's own lengths (the first eight serve prompts
+    after their 32 generated tokens, tables 64 pages wide as the engine's)
+    and a long context (4 sequences of 4096 tokens, tables 256 wide)."""
+    served = [len(p) + 32 for p in serve_prompts(SEED, vocab)[:8]]
+    return [("served decode", served, 64), ("long context", [4096] * 4, 256)]
+
+
+def phase_decode_shapes(card, bw) -> None:
+    """rpa_decode and rpa_decode_quant at decode_shapes' shapes (H=Hkv=32,
+    D=128, page 16, bf16 q): each against its plain version, timed beside
+    its bound and the SDPA yardstick on pre-gathered dense K/V."""
+    import torch.nn.functional as tf
+    from paddle_tpu_torch.ops.cuda.attention import (
+        ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
+    bf16 = torch.bfloat16
+    for i, (label, lens, width) in enumerate(decode_shapes(32000)):
+        b, page = len(lens), 16
+        pages = sum(math.ceil(n / page) for n in lens) + 1
+        q, k, v, bt, sl = rpa_inputs(b, 32, 32, 128, page, width, pages,
+                                     lens, bf16, SEED + 90 + i)
+        (kq, ks), (vq, vs) = quant_pools(k.float(), v.float())
+        t = width * page
+        mask = (torch.arange(t, device="cuda")[None, :]
+                < sl.long()[:, None])[:, None, None, :]
+        for name, kk, vv, kw in (
+                ("rpa_decode", k, v, {}),
+                ("rpa_decode_quant", kq, vq, {"k_scales": ks,
+                                              "v_scales": vs})):
+            got = ragged_paged_attention_decode(q, kk, vv, bt, sl, **kw)
+            want = ragged_paged_attention_decode_ref(q, kk, vv, bt, sl,
+                                                     None, **kw)
+            err = (got.float() - want.float()).abs()
+            atol, rtol = TOL[bf16]
+            if bool((err > atol + rtol * want.float().abs()).any()):
+                raise AssertionError(f"{name}, {label}: kernel disagrees "
+                                     f"with its plain version")
+            ms = time_ms(lambda: ragged_paged_attention_decode(
+                q, kk, vv, bt, sl, **kw))
+            # the yardstick: SDPA on K/V gathered (and dequantized) into a
+            # dense (B, H, T, D) layout, the gather not timed
+            bl = bt.long()
+            kd, vd = kk[bl].float(), vv[bl].float()
+            if kw:
+                kd, vd = kd * ks[bl], vd * vs[bl]
+            kd, vd = (x.to(bf16).reshape(b, t, 32, 128).transpose(1, 2)
+                      .contiguous() for x in (kd, vd))
+            lib = time_ms(lambda: tf.scaled_dot_product_attention(
+                q[:, :, None, :], kd, vd, attn_mask=mask))
+            del kd, vd
+            bound, by = rpa_bound_ms(q, kk, lens, page, bw, scaled=bool(kw))
+            log(f"  [{card}] {name}, {label} (B={b}, lens {lens}, tables "
+                f"{width} pages): kernel {ms:.4f} ms ({bound / ms:.1%} of "
+                f"the bound), bound {bound:.4f} ms ({by}), library (SDPA on "
+                f"pre-gathered dense K/V) {lib:.4f} ms, max abs err "
+                f"{err.max().item():.3e}")
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -1801,6 +1874,7 @@ def main() -> int:
     log("[3/9] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
         phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw)
+    phase_decode_shapes(card, bw)
     phase_wide_heads(card)
     launches = {"rpa_decode": phase_serve(card)["rpa_decode"]}
     launches.update({n: v for n, v in phase_train(

@@ -12,6 +12,16 @@ plain version for CPU tensors and launches the kernel for CUDA tensors —
 there is no other route, and no fallback from a failed build or launch.
 ``LAUNCH_COUNTS`` counts kernel launches (plain-version calls do not
 count), so a run can show that its decode steps went through the kernel.
+
+The kernel splits each sequence into splits of a fixed number of pages
+(``rpa_decode_split_pages()`` of the library), a thread block each; the
+number of splits comes from the block table's width, so the wrapper never
+reads ``seq_lens`` on the host.  Sequences longer than one split merge
+their partial softmaxes in a workspace that the wrapper keeps per (device,
+stream) (``_workspace``): its counters are zeroed once and every launch
+leaves them at 0.  A call made while its stream is captured into a CUDA
+graph gets a workspace of its own, allocated (and zeroed) in the capture,
+so that no graph's private memory enters the cache.
 """
 
 from __future__ import annotations
@@ -35,6 +45,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _MAX_SMEM_BYTES = 232448
 
 LAUNCH_COUNTS = {"rpa_decode": 0, "rpa_decode_quant": 0}
+
+# (device index, stream) -> (partial outputs f32, partial max and sum f32,
+# counters int32): the split merge's workspace, grown when a larger shape
+# comes; the counters are zeroed when allocated and each launch leaves
+# them at 0, so two streams never share them
+_WORKSPACE = {}
 
 
 def reset_launch_counts() -> None:
@@ -96,6 +112,13 @@ def _check_args(q, k_pages, v_pages, block_tables, seq_lens,
                          f"{sorted(str(x) for x in devices)}")
 
 
+def _scale(q, scale) -> float:
+    """The softmax scale of the decode, dense and ragged kernels.  The
+    reference's wrappers read ``scale or 1 / sqrt(d)``, so a falsy scale
+    (None or 0) means the default there, and here."""
+    return float(scale) if scale else 1.0 / math.sqrt(q.shape[-1])
+
+
 def ragged_paged_attention_decode_ref(q, k_pages, v_pages, block_tables,
                                       seq_lens, scale: Optional[float] = None,
                                       k_scales=None, v_scales=None):
@@ -105,7 +128,7 @@ def ragged_paged_attention_decode_ref(q, k_pages, v_pages, block_tables,
     giving exact zeros.  q: (B, H, D); returns (B, H, D) in q's dtype."""
     b, h, d = q.shape
     _, page, hkv, _ = k_pages.shape
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    scale = _scale(q, scale)
     bt = block_tables.long()
     t = bt.shape[1] * page
     k = k_pages[bt].reshape(b, t, hkv, d).float()
@@ -135,19 +158,43 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("rpa_decode")
-        lib.rpa_decode.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 \
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        tail = [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int,
+                                     ctypes.c_void_p]
+        lib.rpa_decode.argtypes = [ctypes.c_void_p] * 9 + tail
         lib.rpa_decode.restype = ctypes.c_int
-        lib.rpa_decode_quant.argtypes = [ctypes.c_void_p] * 8 + \
-            [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int,
-                                  ctypes.c_void_p]
+        lib.rpa_decode_quant.argtypes = [ctypes.c_void_p] * 11 + tail
         lib.rpa_decode_quant.restype = ctypes.c_int
-        lib.rpa_decode_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.rpa_decode_smem_bytes.argtypes = [ctypes.c_int] * 3
         lib.rpa_decode_smem_bytes.restype = ctypes.c_size_t
+        lib.rpa_decode_split_pages.argtypes = []
+        lib.rpa_decode_split_pages.restype = ctypes.c_int
+        lib.split_pages = lib.rpa_decode_split_pages()
         lib.rpa_decode_error_string.argtypes = [ctypes.c_int]
         lib.rpa_decode_error_string.restype = ctypes.c_char_p
         _LIB = lib
     return _LIB
+
+
+def _workspace(device, stream: int, partials: int, d: int,
+               counters: int):
+    """The split merge's workspace for (device, stream), grown to hold
+    ``partials`` partial rows of ``d`` and ``counters`` counters; not
+    cached while the stream is captured."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.empty(partials * d, dtype=torch.float32, device=device),
+                torch.empty(partials * 2, dtype=torch.float32, device=device),
+                torch.zeros(counters, dtype=torch.int32, device=device))
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    want = (partials * d, partials * 2, counters)
+    if ws is None or any(t.numel() < n for t, n in zip(ws, want)):
+        have = (0, 0, 0) if ws is None else tuple(t.numel() for t in ws)
+        n_acc, n_ml, n_cnt = (max(a, b) for a, b in zip(want, have))
+        ws = (torch.empty(n_acc, dtype=torch.float32, device=device),
+              torch.empty(n_ml, dtype=torch.float32, device=device),
+              torch.zeros(n_cnt, dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float,
@@ -159,20 +206,28 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float,
                          "contiguous")
     lib = _lib()
     b, h, d = q.shape
-    _, page, hkv, _ = k_pages.shape
-    smem = lib.rpa_decode_smem_bytes(h // hkv, d)
+    num_pages, page, hkv, _ = k_pages.shape
+    groups = h // hkv
+    smem = lib.rpa_decode_smem_bytes(groups, d, k_pages.element_size())
     if smem > _MAX_SMEM_BYTES:
-        raise ValueError(f"{h // hkv} query heads per kv head at head_dim "
+        raise ValueError(f"{groups} query heads per kv head at head_dim "
                          f"{d} need {smem} bytes of shared memory per block "
                          f"(> {_MAX_SMEM_BYTES})")
     q = q.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     sl = seq_lens.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    max_pages = bt.shape[1]
+    splits = max(1, -(-max_pages // lib.split_pages))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        dims = (out.data_ptr(), b, h, hkv, d, page, bt.shape[1], scale,
-                _DTYPE_CODES[q.dtype], stream)
+        ws = (None, None, None)
+        if splits > 1:
+            ws = tuple(t.data_ptr() for t in _workspace(
+                q.device, stream, b * h * splits, d,
+                b * hkv * -(-groups // 8)))
+        dims = (out.data_ptr(), *ws, b, h, hkv, d, page, num_pages,
+                max_pages, scale, _DTYPE_CODES[q.dtype], stream)
         if k_scales is None:
             name = "rpa_decode"
             rc = lib.rpa_decode(q.data_ptr(), k_pages.data_ptr(),
@@ -186,7 +241,7 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, scale: float,
                                       sl.data_ptr(), *dims)
     if rc != 0:
         raise RuntimeError(
-            f"{name} launch failed: CUDA error {rc} "
+            f"{name} launch failed: error {rc} "
             f"({lib.rpa_decode_error_string(rc).decode()})")
     LAUNCH_COUNTS[name] += 1
     return out
@@ -203,11 +258,12 @@ def ragged_paged_attention_decode(q, k_pages, v_pages, block_tables,
     page, Hkv, 1), one scale per token and kv head), int8 codes.
     ``block_tables``: (B, P) page ids, padded with page 0.
     ``seq_lens``: (B,) valid tokens per sequence INCLUDING the current one;
-    0 marks an inert slot, which outputs zeros.  Returns (B, H, D) in q's
+    0 marks an inert slot, which outputs zeros.  ``scale``: None or 0
+    means 1 / sqrt(D), as in the reference.  Returns (B, H, D) in q's
     dtype.  CPU tensors get the plain version; CUDA tensors the kernel."""
     _check_args(q, k_pages, v_pages, block_tables, seq_lens, k_scales,
                 v_scales)
-    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    scale = _scale(q, scale)
     if q.device.type == "cpu":
         return ragged_paged_attention_decode_ref(q, k_pages, v_pages,
                                                  block_tables, seq_lens,

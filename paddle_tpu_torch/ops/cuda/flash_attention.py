@@ -38,7 +38,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
-from .attention import _DTYPE_CODES, LAUNCH_COUNTS
+from .attention import _DTYPE_CODES, LAUNCH_COUNTS, _scale
 
 __all__ = ["flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
            "flash_attention_bwd", "flash_attention_fwd_ref",
@@ -140,7 +140,9 @@ def _check(q, k, v, causal, *, out=None, lse=None, do=None,
                          f"{sorted(str(x) for x in devices)}")
 
 
-def _scale(q, scale) -> float:
+def _varlen_scale(q, scale) -> float:
+    """The varlen kernels' softmax scale.  The reference passes the
+    functional's scale through as it is, so only None means 1 / sqrt(d)."""
     return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
 
 
@@ -293,7 +295,8 @@ def varlen_flash_fwd_ref(q, k, v, cu_seqlens, causal: bool = False,
     its own ``cu_seqlens`` segment (at or before it when causal).  Returns
     (out like q, lse f32 (H, T))."""
     vis = _segment_visible(cu_seqlens, q.shape[1], causal)
-    out, lse = _fwd_ref(q[None], k[None], v[None], vis, _scale(q, scale))
+    out, lse = _fwd_ref(q[None], k[None], v[None], vis,
+                        _varlen_scale(q, scale))
     return out[0], lse[0]
 
 
@@ -308,7 +311,8 @@ def varlen_flash_dq_ref(q, k, v, cu_seqlens, out, lse, do,
     """Plain PyTorch version of the varlen dq kernel."""
     vis = _segment_visible(cu_seqlens, q.shape[1], causal)
     return _dq_ref(q[None], k[None], v[None], out[None], lse[None],
-                   do[None], vis, _scale(q, scale), _batch1(delta))[0]
+                   do[None], vis, _varlen_scale(q, scale),
+                   _batch1(delta))[0]
 
 
 def varlen_flash_dkv_ref(q, k, v, cu_seqlens, out, lse, do,
@@ -320,7 +324,8 @@ def varlen_flash_dkv_ref(q, k, v, cu_seqlens, out, lse, do,
     each kv group)."""
     vis = _segment_visible(cu_seqlens, q.shape[1], causal)
     dk, dv = _dkv_ref(q[None], k[None], v[None], out[None], lse[None],
-                      do[None], vis, _scale(q, scale), _batch1(delta))
+                      do[None], vis, _varlen_scale(q, scale),
+                      _batch1(delta))
     return dk[0], dv[0]
 
 
@@ -620,7 +625,7 @@ def varlen_flash_fwd(q, k, v, cu_seqlens, causal: bool = False,
     like q, lse float32 (H, T)).  CPU tensors get the plain version; CUDA
     tensors the kernel."""
     _check_varlen(q, k, v, cu_seqlens, causal)
-    scale = _scale(q, scale)
+    scale = _varlen_scale(q, scale)
     if _device(q) == "cpu":
         return varlen_flash_fwd_ref(q, k, v, cu_seqlens, causal, scale)
     q, k, v = _rows(q), _rows(k), _rows(v)
@@ -641,7 +646,7 @@ def varlen_flash_dq(q, k, v, cu_seqlens, out, lse, do, causal: bool = False,
     varlen dq kernel."""
     _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do,
                   delta=delta)
-    scale = _scale(q, scale)
+    scale = _varlen_scale(q, scale)
     if _device(q) == "cpu":
         return varlen_flash_dq_ref(q, k, v, cu_seqlens, out, lse, do, causal,
                                    scale, delta)
@@ -659,7 +664,7 @@ def varlen_flash_dkv(q, k, v, cu_seqlens, out, lse, do, causal: bool = False,
     varlen dk/dv kernel."""
     _check_varlen(q, k, v, cu_seqlens, causal, out=out, lse=lse, do=do,
                   delta=delta)
-    scale = _scale(q, scale)
+    scale = _varlen_scale(q, scale)
     if _device(q) == "cpu":
         return varlen_flash_dkv_ref(q, k, v, cu_seqlens, out, lse, do,
                                     causal, scale, delta)

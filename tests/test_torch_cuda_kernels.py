@@ -17,6 +17,7 @@ from paddle_tpu_torch.nn.functional import (ROUTE_COUNTS,
                                             reset_route_counts,
                                             scaled_dot_product_attention,
                                             sdpa)
+from paddle_tpu_torch.ops.cuda import attention as rpa
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.attention import (
     LAUNCH_COUNTS, ragged_paged_attention_decode,
@@ -91,6 +92,99 @@ def test_rpa_decode_kernel_refuses_what_it_cannot_take(cuda_device):
     assert strided.shape == k.shape and not strided.is_contiguous()
     with pytest.raises(ValueError, match="contiguous"):
         ragged_paged_attention_decode(q, strided, strided, bt, sl)
+
+
+def split_lens(page):
+    """Lengths around the kernel's split (rpa_decode_split_pages() pages):
+    an inert row, 1, one split less one token, one split, one split and a
+    token, three splits and five tokens, and a full table of 256 pages."""
+    split = rpa._lib().split_pages * page
+    return [0, 1, split - 1, split, split + 1, 3 * split + 5, 256 * page]
+
+
+def decode_case(device, quant, heads, kv_heads, d, lens, seed, page=16,
+                max_pages=256):
+    """(kernel arguments, keyword arguments) of a bf16 decode over bf16
+    pools or (quant) int8 pools with their scales; tables 256 pages wide
+    unless given."""
+    pages = sum(math.ceil(n / page) for n in lens) + 1
+    if quant:
+        q, k, v, bt, sl, ks, vs = quant_rpa_inputs(
+            device, torch.bfloat16, heads, kv_heads, d, page, lens, seed,
+            max_pages=max_pages, num_pages=pages)
+        return (q, k, v, bt, sl), {"k_scales": ks, "v_scales": vs}
+    return rpa_inputs(device, torch.bfloat16, heads, kv_heads, d, page,
+                      lens, seed, max_pages=max_pages, num_pages=pages), {}
+
+
+# pages of 16 tokens take the TMA loader, pages of 8 (rows of 16-byte
+# multiples, a stage across two pages) the 16-byte cp.async one
+@pytest.mark.gpu
+@pytest.mark.parametrize("page", [16, 8], ids=["tma", "cp.async"])
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("heads,kv_heads,d", [
+    (32, 32, 128), (64, 8, 128), (64, 8, 256)],
+    ids=["mha", "gqa64q8kv", "gqa8_d256"])
+def test_rpa_decode_splits_match_plain_version(cuda_device, page, quant,
+                                                heads, kv_heads, d):
+    """Lengths at and around the split boundaries; one launch a call, and
+    two launches bitwise equal (each merge resets its counter and sums the
+    splits in split order)."""
+    args, kw = decode_case(cuda_device, quant, heads, kv_heads, d,
+                           split_lens(page), 7, page)
+    name = "rpa_decode_quant" if quant else "rpa_decode"
+    before = dict(LAUNCH_COUNTS)
+    got = ragged_paged_attention_decode(*args, **kw)
+    again = ragged_paged_attention_decode(*args, **kw)
+    want = ragged_paged_attention_decode_ref(*args, None, **kw)
+    torch.cuda.synchronize()
+    assert {n: LAUNCH_COUNTS[n] - before[n] for n in before} == \
+        {n: 2 * (n == name) for n in before}
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+    assert bool((got[0] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_rpa_decode_workspace_takes_a_smaller_shape_after_a_larger(
+        cuda_device, quant):
+    """The split workspace of a (device, stream) is grown for a large call
+    and reused, counters and all, by smaller ones after it."""
+    large = decode_case(cuda_device, quant, 64, 8, 128, split_lens(16), 8)
+    small = decode_case(cuda_device, quant, 8, 4, 64, [300, 0, 40], 9)
+    for args, kw in (large, small, large, small):
+        got = ragged_paged_attention_decode(*args, **kw)
+        want = ragged_paged_attention_decode_ref(*args, None, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   atol=TOL[torch.bfloat16],
+                                   rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_rpa_decode_takes_tables_wider_than_a_split_row_each(cuda_device,
+                                                             quant):
+    """65 sequences over tables 8192 pages wide: one block row a split of
+    a full table would be 65 x 1024 rows, past the 65535 a grid may have.
+    Most rows are short, as a served decode's under the engine's padding
+    to its longest context; one reaches past 1000 splits."""
+    rng = np.random.default_rng(11)
+    lens = [0, 1, 16 * 8192] + rng.integers(1, 3000, 62).tolist()
+    args, kw = decode_case(cuda_device, quant, 8, 2, 64, lens, 12,
+                           max_pages=8192)
+    q, k, v, bt, sl = args
+    got = ragged_paged_attention_decode(q, k, v, bt, sl, **kw)
+    want = torch.cat([ragged_paged_attention_decode_ref(   # a row at a time
+        q[i:i + 1], k, v, bt[i:i + 1], sl[i:i + 1], None, **kw)
+        for i in range(len(lens))])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
 
 
 # flash kernels vs plain versions: f32 elementwise (summation order only);
@@ -259,11 +353,12 @@ def test_flash_kernels_refuse_what_they_cannot_take(cuda_device):
             {n: int(ok) for n in ("flash_fwd", "flash_dq", "flash_dkv")}
 
 
-def quant_rpa_inputs(device, dtype, heads, kv_heads, d, page, lens, seed=0):
+def quant_rpa_inputs(device, dtype, heads, kv_heads, d, page, lens, seed=0,
+                     **shape):
     """rpa_inputs' pools as int8 codes with one f32 scale per (token, kv
     head); page 0 holds garbage codes and scales."""
     q, k, v, bt, sl = rpa_inputs(device, torch.float32, heads, kv_heads, d,
-                                 page, lens, seed)
+                                 page, lens, seed, **shape)
     (kq, ks), (vq, vs) = quantize_kv_rows(k), quantize_kv_rows(v)
     kq[0], vq[0], ks[0], vs[0] = 127, -127, 300.0, 300.0
     return q.to(dtype), kq, vq, bt, sl, ks, vs

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 import paddle_tpu as paddle
 from paddle_tpu.nn.functional import attention as jfa
@@ -265,3 +266,21 @@ def test_ragged_length_and_single_row_on_the_plain_path():
         for g, t in zip(grads, (qd, kd, vd)):
             torch.testing.assert_close(g.double(), t.grad, rtol=1e-5,
                                        atol=1e-5)
+
+
+@pytest.mark.parametrize("scale", [0.0, None], ids=["zero", "none"])
+def test_falsy_scale_means_the_default_as_in_the_reference(scale):
+    """The reference's ``flash_attention_bhsd`` (and its VJP) reads ``scale
+    or 1 / sqrt(d)``: scale=0.0 is the default there, and so in the dense
+    wrappers here, forward and backward."""
+    s, d = 128, 16
+    q, k, v, do = inputs(s, d)
+    out, vjp = jax.vjp(
+        lambda a, b, c: pa.flash_attention_bhsd(a, b, c, True, scale, True),
+        *(jnp.asarray(x) for x in (q, k, v)))
+    want = [to_np(out)] + [to_np(g) for g in vjp(jnp.asarray(do))]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    got, lse = flash_attention_fwd(tq, tk, tv, True, scale)
+    grads = flash_attention_bwd(tq, tk, tv, got, lse, tdo, True, scale)
+    for name, g, w in zip(("out", "dq", "dk", "dv"), (got, *grads), want):
+        assert_close(g, w, torch.float32, name)

@@ -40,8 +40,8 @@ def make_case(seed, heads, kv_heads, lens, d=32, page=4, max_pages=6,
     return q, k, v, bt, np.asarray(lens, np.int32)
 
 
-def run_jax(q, k, v, bt, sl):
-    return np.asarray(jax_rpa(q, k, v, bt, sl, interpret=True))
+def run_jax(q, k, v, bt, sl, scale=None):
+    return np.asarray(jax_rpa(q, k, v, bt, sl, scale, interpret=True))
 
 
 def run_port(fn, q, k, v, bt, sl):
@@ -136,3 +136,17 @@ def test_wrapper_refusals():
         ragged_paged_attention_decode(q, k, v, bt[:1], sl)
     with pytest.raises(ValueError, match="one device"):
         ragged_paged_attention_decode(q.to("meta"), k, v, bt, sl)
+
+
+@pytest.mark.parametrize("scale", [0.0, None], ids=["zero", "none"])
+def test_falsy_scale_means_the_default_as_in_the_reference(scale):
+    """The reference reads ``scale or 1 / sqrt(d)``: scale=0.0 is the
+    default there, and so in the wrapper and the plain version here."""
+    case = make_case(5, 4, 4, [6, 11])
+    t = [torch.from_numpy(a) for a in case]
+    want = run_jax(*case, scale=scale)
+    np.testing.assert_allclose(run_jax(*case), want, atol=0, rtol=0)
+    for fn in (ragged_paged_attention_decode,
+               ragged_paged_attention_decode_ref):
+        got = fn(*t, scale=scale).numpy()
+        np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)

@@ -205,6 +205,40 @@ def test_plain_ragged_forward_matches_pallas_ragged_kernel(name, causal, dt):
     assert_close(got, ragged_pallas(name, causal, dt), dt, "out")
 
 
+@pytest.mark.parametrize("scale", [0.0, None], ids=["zero", "none"])
+def test_ragged_falsy_scale_means_the_default_as_in_the_reference(scale):
+    """The reference's ``flash_attention_ragged_bhsd`` reads ``scale or
+    1 / sqrt(d)``: scale=0.0 is the default there, and so here."""
+    q, k, v, lens = ragged_inputs("s128-d16")
+    want = to_np(pa.flash_attention_ragged_bhsd(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(lens), True,
+        scale, interpret=True))
+    assert_close(torch.from_numpy(want), ragged_pallas(
+        "s128-d16", True, torch.float32), torch.float32, "default")
+    got = fa.flash_attention_ragged_bhsd(
+        *(torch.from_numpy(x) for x in (q, k, v)), torch.from_numpy(lens),
+        True, scale)
+    assert_close(got, want, torch.float32, "out")
+
+
+def test_varlen_scale_zero_passes_through_as_in_the_reference():
+    """The reference's varlen path passes the functional's scale through
+    as it is: scale=0.0 gives uniform attention over each segment there,
+    and here (only None means 1 / sqrt(d))."""
+    t, d, h, hkv, cu = VARLEN["t256-d16"]
+    q, k, v, _ = packed(t, d, h, hkv)
+    out, lse = pa._varlen_flash_fwd(
+        *(jnp.asarray(x) for x in (q, k, v)), jnp.asarray(cu, jnp.int32),
+        False, 0.0, True)
+    got, got_lse = fa.varlen_flash_fwd(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        torch.tensor(cu, dtype=torch.int32), False, 0.0)
+    assert_close(got, to_np(out), torch.float32, "out")
+    assert_close(got_lse, to_np(lse[..., 0]), torch.float32, "lse")
+    seg = v[:, :cu[1]].mean(axis=1)              # uniform over segment 0
+    np.testing.assert_allclose(got[:, 0].numpy(), seg, atol=1e-5)
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 def test_ragged_rows_past_the_length_are_not_zeros(causal):
     """The reference's docstring (and an earlier ROADMAP) says rows at or

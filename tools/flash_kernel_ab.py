@@ -17,11 +17,24 @@ dk/dv and the whole backward (``flash_attention_bwd``) at the training
 shape (B=1, H=32, S=4096, D=128, bf16, causal), where the tree takes it
 the dense forward and backward at head_dim 256 (B=1, H=8, S=4096, bf16,
 causal) and, where the tree has them, the varlen forward, dq, dk/dv and
-backward at the packed shape (T=4096 in six documents).  dq and dk/dv are the wrappers called alone,
-so where a tree has the delta pre-pass each of them includes one.  Each
-line also holds the outputs' largest relative L2 distance from this
-tree's plain versions.  Run it from the repository root on a machine with
-a card and nvcc.
+backward at the packed shape (T=4096 in six documents).  dq and dk/dv are
+the wrappers called alone, so where a tree has the delta pre-pass each of
+them includes one.  Each line also holds the outputs' largest relative L2
+distance from this tree's plain versions.
+
+    python3 tools/flash_kernel_ab.py OLD_CSRC NEW_CSRC --kernels rpa
+
+times the paged-attention decode kernels instead (``rpa_decode`` over
+bf16 pools, ``rpa_decode_quant`` over int8 pools) at the serving shape
+(B=8, H=Hkv=32, D=128, page 16, lengths 0..1024, tables 64 pages wide),
+at chip_smoke.py's two further decode shapes (the served decode's own
+lengths; 4 x 4096 tokens) and at the served decode's lengths over tables
+256 pages wide (an engine whose longest context is 4096 tokens pads every
+table so), through each tree's own ``attention.py``, with its outputs'
+largest absolute distance from this tree's plain versions.  Trees that
+differ in a constant of the kernel (a split's pages, say) compare so.
+``--kernels flash,rpa`` times both.  Run it from the repository root on a
+machine with a card and nvcc.
 """
 
 from __future__ import annotations
@@ -41,20 +54,25 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import PACKED_DOCS, cu_of, nvidia_smi, time_ms  # noqa: E402
+from chip_smoke import (PACKED_DOCS, SERVE_LENS, cu_of,  # noqa: E402
+                        decode_shapes, nvidia_smi, quant_pools, rpa_inputs,
+                        time_ms)
 from paddle_tpu_torch.ops.cuda import _build  # noqa: E402
+from paddle_tpu_torch.ops.cuda import attention as rpa_ref  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as ref  # noqa: E402
 
 
-def build(trees):
-    """lib<name>.so of each tree's flash_*.cu, all nvcc processes started
-    together; prints each tree's kernels that ptxas made spill."""
+def build(trees, sources):
+    """lib<name>.so of each tree's sources (glob patterns), all nvcc
+    processes started together; prints each tree's kernels that ptxas made
+    spill."""
     procs, out = [], []
     for i, tree in enumerate(trees):
         dst = ROOT / "build" / "kernels-ab" / str(i)
         dst.mkdir(parents=True, exist_ok=True)
         out.append(dst)
-        for src in sorted(Path(tree).glob("flash_*.cu")):
+        for src in sorted(f for pattern in sources
+                          for f in Path(tree).glob(pattern)):
             procs.append((i, subprocess.Popen(
                 [_build._nvcc(), *_build._NVCC_FLAGS, "-o",
                  str(dst / f"lib{src.stem}.so"), str(src)],
@@ -74,8 +92,8 @@ def build(trees):
 
 
 def wrappers(index: int, tree: str, lib_dir: Path):
-    """The tree's own flash_attention module, its kernels loaded from
-    lib_dir."""
+    """The tree's own flash_attention and attention modules, their kernels
+    loaded from lib_dir."""
     pkg_dir = Path(tree).resolve().parent
     if not (pkg_dir / "flash_attention.py").exists():
         raise FileNotFoundError(f"no flash_attention.py beside {tree}")
@@ -85,7 +103,45 @@ def wrappers(index: int, tree: str, lib_dir: Path):
     sys.modules[name] = pkg
     fa = importlib.import_module(f"{name}.flash_attention")
     fa._build.load = lambda lib: ctypes.CDLL(str(lib_dir / f"lib{lib}.so"))
-    return fa
+    return fa, importlib.import_module(f"{name}.attention")
+
+
+def decode_inputs():
+    """{shape: (bf16 pools, int8 pools with their scales)} of the decode
+    kernels' arguments at chip_smoke.py's shapes (H=Hkv=32, D=128, page
+    16): the serving shape, the served decode's own lengths, a long
+    context, and the served decode's lengths over 256-wide tables."""
+    bf16 = torch.bfloat16
+    shapes = [("serving shape", SERVE_LENS, 64)] + decode_shapes(32000)
+    shapes.append(("served decode, tables 256 wide", shapes[1][1], 256))
+    cases = {}
+    for label, lens, width in shapes:
+        pages = max(2048, sum(-(-n // 16) for n in lens) + 1)
+        q, k, v, bt, sl = rpa_inputs(len(lens), 32, 32, 128, 16, width,
+                                     pages, lens, bf16, 0)
+        (kq, ks), (vq, vs) = quant_pools(k.float(), v.float())
+        cases[label] = (((q, k, v, bt, sl), {}),
+                        ((q, kq, vq, bt, sl), {"k_scales": ks,
+                                               "v_scales": vs}))
+    return cases
+
+
+def time_decode(i, tree, attn, cases):
+    """One line a shape: both decode kernels' times in the tree and their
+    largest distance from this tree's plain version."""
+    for shape, pair in cases.items():
+        ms, err = {}, 0.0
+        for name, (args, kw) in zip(("rpa_decode", "rpa_decode_quant"),
+                                    pair):
+            ms[name] = time_ms(
+                lambda: attn.ragged_paged_attention_decode(*args, **kw))
+            got = attn.ragged_paged_attention_decode(*args, **kw).float()
+            want = rpa_ref.ragged_paged_attention_decode_ref(
+                *args, None, **kw).float()
+            err = max(err, (got - want).abs().max().item())
+        print(f"tree {i} ({tree}) {shape}: "
+              + " ".join(f"{n} {t:.4f} ms" for n, t in ms.items())
+              + f"; max abs err vs plain {err:.3e}", flush=True)
 
 
 def rel(a, b) -> float:
@@ -98,7 +154,10 @@ def main() -> int:
     ap.add_argument("--order", default=None,
                     help="comma-separated tree indices (default: 0..n-1 "
                          "then n-1..0)")
+    ap.add_argument("--kernels", default="flash",
+                    help="comma-separated: flash, rpa (default flash)")
     args = ap.parse_args()
+    kinds = set(args.kernels.split(","))
     if not torch.cuda.is_available():
         print("flash_kernel_ab: needs a CUDA device", file=sys.stderr)
         return 1
@@ -106,11 +165,18 @@ def main() -> int:
     order = ([int(x) for x in args.order.split(",")] if args.order
              else list(range(n)) + list(reversed(range(n))))
     t0 = time.perf_counter()
-    libs = build(args.trees)
+    libs = build(args.trees, (["flash_*.cu"] if "flash" in kinds else [])
+                 + (["rpa_decode.cu"] if "rpa" in kinds else []))
     mods = [wrappers(i, t, d) for i, (t, d) in enumerate(zip(args.trees,
                                                              libs))]
     print(f"built {n} trees in {time.perf_counter() - t0:.1f} s")
     print(nvidia_smi())
+    if "rpa" in kinds:
+        cases = decode_inputs()
+        for i in order:
+            time_decode(i, args.trees[i], mods[i][1], cases)
+    if "flash" not in kinds:
+        return 0
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v, do = (torch.randn(1, 32, 4096, 128, generator=g, device="cuda")
                    .to(torch.bfloat16) for _ in range(4))
@@ -126,7 +192,7 @@ def main() -> int:
     wout, wlse = ref.flash_attention_fwd_ref(wq, wk, wv, True)
     wwant = ref.flash_attention_bwd_ref(wq, wk, wv, wout, wlse, wdo, True)
     for i in order:
-        fa = mods[i]
+        fa = mods[i][0]
         ms = {"flash_fwd": time_ms(lambda: fa.flash_attention_fwd(
                   q, k, v, True)),
               "flash_dq": time_ms(lambda: fa.flash_attention_dq(
