@@ -9,16 +9,20 @@ and prints no result line):
 1. device — the card's name, count, and ``nvidia-smi`` name/power limit;
 2. build  — nvcc compiles every kernel source of the package (sm_90a), one
    process per source, all started together, and reports ptxas's
-   registers and spills of each kernel (none may spill in a wgmma kernel
-   or a head_dim-256 instantiation) and the wgmma (HGMMA) and TMA-load
-   (UTMALDG) instructions of the flash forward's and backward's libraries;
+   registers and spills of each kernel (none may spill in a wgmma kernel,
+   a head_dim-256 instantiation, a decode kernel or a tensor-core
+   quantized matmul), the wgmma (HGMMA) and TMA-load (UTMALDG)
+   instructions of the flash forward's and backward's libraries and the
+   mma.sync (HMMA), wgmma and TMA-load instructions of the quantized
+   matmul's;
 3. kernel — each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, plus edge cases (head_dim up to 256);
    kernel, plain and library times with CUDA events (L2 flushed between
    launches) and the card's bound for the same work (the ragged flash
    forward, which no path calls, at the serving chunk shape; the flash
    kernels also at head_dim 256; the decode kernels also at the served
-   decode's own lengths and at a long context); the attention
+   decode's own lengths and at a long context; the quantized matmuls at
+   M=8 and M=256 over every Llama-7B Linear, on both routes); the attention
    functionals at head_dim 136, 192, 256 and 272 on the card against the
    same calls on the CPU (the kernels' plain versions), with their routes;
 4. serve  — Llama-7B at full width and depth (random weights from a seed,
@@ -46,9 +50,11 @@ and prints no result line):
    checked, and first-decode-step logits held against the same quantized
    model on the plain paths (and printed against the bf16 model's); then
    a tiny f32 Llama with int8 weights and int8 KV on the card vs the CPU;
-9. profiles — torch.profiler breakdowns of batch-8 decode steps (bf16;
-   int8 weights and KV) and of one train step, after every timed phase,
-   since a profiler run slows the host side of later work.
+9. profiles — torch.profiler breakdowns of 256-token prefill chunks and
+   batch-8 decode steps (bf16; int8 weights and KV; int4 weights) and of
+   one train step,
+   after every timed phase, since a profiler run slows the host side of
+   later work.
 
 The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 ``launches`` counted on the path named by its ``launches_in``); the last is
@@ -199,17 +205,33 @@ def build_report(lib: str, info: dict) -> None:
         r = rows[kernel]
         log(f"  {lib}: {name}: {r.get('regs')} registers, "
             f"{r.get('spill', 0)} bytes spill stores")
-        # the wgmma kernels, the mma.sync kernels' head_dim-256 ones and
-        # every decode kernel
+        # the wgmma kernels, the mma.sync kernels' head_dim-256 ones, every
+        # decode kernel and the quantized matmul's tensor-core kernels
         if ("_ws_" in kernel or re.search(r", 256>", name)
-                or lib == "rpa_decode"):
+                or lib == "rpa_decode" or "qmm_tc_kernel" in kernel
+                or "qmm_wg_kernel" in kernel):
             must_not_spill.append((name, r.get("spill", 0)))
     for line in info["ptxas"].splitlines():
         if "Performance Loss" in line or "serialized" in line:
             log(f"  {lib}: ptxas: {line.strip()}")
-    if lib == "rpa_decode" and any(n for _, n in must_not_spill):
-        raise AssertionError("librpa_decode: kernels spill: " + "; ".join(
+    if lib in ("rpa_decode", "quant_matmul") and any(
+            n for _, n in must_not_spill):
+        raise AssertionError(f"lib{lib}: kernels spill: " + "; ".join(
             f"{n} {b} bytes" for n, b in must_not_spill if b))
+    if lib == "quant_matmul":
+        sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
+                               info["path"]],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        counts = {op: len(re.findall(op, sass))
+                  for op in ("HMMA", "HGMMA", "UTMALDG")}
+        log(f"  libquant_matmul: {len(must_not_spill)} tensor-core "
+            f"instantiations, 0 bytes spilled; SASS holds {counts['HMMA']} "
+            f"HMMA (mma.sync), {counts['HGMMA']} HGMMA (wgmma) and "
+            f"{counts['UTMALDG']} UTMALDG (TMA tile load) instructions")
+        if not must_not_spill or not all(counts.values()):
+            raise AssertionError("libquant_matmul lacks its tensor-core or "
+                                 "TMA kernels")
     if lib in ("flash_fwd", "flash_bwd"):
         sass = subprocess.run([str(tools / "cuobjdump"), "-sass",
                                info["path"]],
@@ -957,7 +979,8 @@ def qmm_case(label, m, k, n, bits, group, dtype, seed, quiet=False):
     """The quantized matmul kernel against its plain version on one shape
     (weights N(0, 0.02), quantized on the card); returns the inputs and the
     max abs error."""
-    from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul,
+    from paddle_tpu_torch.ops.cuda.quant_matmul import (qmm_route,
+                                                        quant_matmul,
                                                         quant_matmul_ref)
     from paddle_tpu_torch.quantize.core import quantize_weight
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -973,7 +996,8 @@ def qmm_case(label, m, k, n, bits, group, dtype, seed, quiet=False):
     err = diff.abs().max().item()
     if not quiet:
         log(f"  {label}: int{bits} M={m} K={k} N={n} group={grp} "
-            f"{str(dtype).replace('torch.', '')}: rel L2 {rel:.2e} (tol "
+            f"{str(dtype).replace('torch.', '')} ({qmm_route(dtype, grp)})"
+            f": rel L2 {rel:.2e} (tol "
             f"{QMM_REL_TOL[dtype]:g}), max abs err {err:.3e}")
     if not torch.isfinite(got).all() or rel > QMM_REL_TOL[dtype]:
         raise AssertionError(f"{label}: quantized matmul kernel disagrees "
@@ -1014,14 +1038,21 @@ def rpa_quant_case(label, batch, heads, kv_heads, d, page, max_pages,
 
 def phase_quant_kernels(card, bw):
     """qmm_i8, qmm_i4 and rpa_decode_quant against their plain versions at
-    the quantized serve's shapes and at edge cases, with times."""
+    the quantized serve's shapes and at edge cases, on both of the
+    quantized matmul's routes, with times."""
     import torch.nn.functional as tf
     from paddle_tpu_torch.ops.cuda.attention import (
         ragged_paged_attention_decode, ragged_paged_attention_decode_ref)
-    from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul,
+    from paddle_tpu_torch.ops.cuda.quant_matmul import (qmm_route,
+                                                        quant_matmul,
                                                         quant_matmul_ref)
     from paddle_tpu_torch.quantize.core import dequantize_weight
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    # the quantized serve's products (bf16 x, group 128) take the tensor
+    # cores
+    if qmm_route(bf16, 128) != "tensor_cores":
+        raise AssertionError("the serve's quantized products would not "
+                             "take the tensor-core route")
     rows = []
     for bits in (8, 4):
         name = f"qmm_i{bits}"
@@ -1037,28 +1068,37 @@ def phase_quant_kernels(card, bw):
             errs.append(e)
             main[(m, k, n)] = inputs
         log(f"  {name}: the {len(shapes)} serve shapes agree with the plain "
-            f"version (bf16 x, group 128), max abs err {max(errs):.3e}")
+            f"version (bf16 x, group 128: {qmm_route(bf16, 128)}), max abs "
+            f"err {max(errs):.3e}")
         for i, case in enumerate([
+                ("fp16 x, decode shape", 8, 4096, 11008, 128, f16),
+                ("fp16 x, prefill shape", 256, 4096, 4096, 128, f16),
                 ("float32 x, decode shape", 8, 4096, 4096, 128, f32),
                 ("float32 x, prefill shape", 256, 4096, 4096, 128, f32),
                 ("fp16 x, M=1", 1, 4096, 11008, 128, f16),
-                ("M=40 (tiled, ragged M)", 40, 4096, 4096, 128, bf16),
+                ("M=17 (two row tiles)", 17, 4096, 1024, 128, bf16),
+                ("M=40 (ragged M)", 40, 4096, 4096, 128, bf16),
                 ("padded K, odd N", 8, 300, 77, 128, bf16),
+                ("padded K, odd N, prefill", 256, 300, 77, 64, bf16),
                 ("tiled, padded K, odd N", 256, 300, 77, 64, f32),
                 ("the tiny model's group", 8, 160, 48, 8, f32),
+                ("the tiny model's group, bf16 x", 8, 160, 48, 8, bf16),
                 ("odd group (int4 pads a group)", 3, 21, 10, 3, f32)]):
             label, m, k, n, group, dtype = case
             errs.append(qmm_case(label, m, k, n, bits, group, dtype,
                                  SEED + 60 + i)[1])
         # timings at every serve shape; the row reports the decode step's
-        # gate/up product (M=8, K=4096, N=11008)
+        # gate/up product (M=8, K=4096, N=11008), and the same product at
+        # M=256 (a prefill chunk) under prefill_*
         per_step = 0.0
+        timed = {}
         for (m, k, n), (x, qw, s, grp) in main.items():
             t = time_ms(lambda: quant_matmul(x, qw, s, bits=bits, group=grp))
             w16 = dequantize_weight(qw, s, bits, grp, k).to(bf16)
             lib = time_ms(lambda: torch.matmul(x, w16))
             del w16
             (bound, by), ceil = qmm_bound_ms(m, k, n, bits, s.shape[0], 2, bw)
+            timed[(m, k, n)] = (t, lib, bound, by)
             if m == 8:
                 per_step += t * LLAMA7B_LINEARS[(k, n)]
             log(f"  [{card}] {name} M={m} K={k} N={n}: kernel {t:.4f} ms, "
@@ -1068,13 +1108,14 @@ def phase_quant_kernels(card, bw):
         log(f"  [{card}] {name}: one decode step's 225 launches at M=8 "
             f"take {per_step:.3f} ms of kernel time by these timings")
         x, qw, s, grp = main[(8, 4096, 11008)]
-        ms = time_ms(lambda: quant_matmul(x, qw, s, bits=bits, group=grp))
+        ms, lib, bound, by = timed[(8, 4096, 11008)]
         plain = time_ms(lambda: quant_matmul_ref(x, qw, s, bits=bits,
                                                  group=grp), iters=10)
-        w16 = dequantize_weight(qw, s, bits, grp, 4096).to(bf16)
-        lib = time_ms(lambda: torch.matmul(x, w16))
-        del w16, main
-        (bound, by), _ = qmm_bound_ms(8, 4096, 11008, bits, s.shape[0], 2, bw)
+        x, qw, s, grp = main[(256, 4096, 11008)]
+        p_ms, p_lib, p_bound, p_by = timed[(256, 4096, 11008)]
+        p_plain = time_ms(lambda: quant_matmul_ref(x, qw, s, bits=bits,
+                                                   group=grp), iters=10)
+        del main
         rows.append({"name": name, "route": "cuda",
                      "source": "paddle_tpu_torch/ops/cuda/csrc/"
                                "quant_matmul.cu",
@@ -1082,7 +1123,9 @@ def phase_quant_kernels(card, bw):
                                  + ("84" if bits == 8 else "93"),
                      "launches": None, "max_abs_err": max(errs), "ms": ms,
                      "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-                     "library_ms": lib})
+                     "library_ms": lib, "prefill_ms": p_ms,
+                     "prefill_plain_ms": p_plain, "prefill_bound_ms": p_bound,
+                     "prefill_bound_by": p_by, "prefill_library_ms": p_lib})
     main, err = rpa_quant_case("serving shape, MHA", 8, 32, 32, 128, 16, 64,
                                2048, SERVE_LENS, bf16, SEED + 80)
     errs = [err]
@@ -1229,42 +1272,69 @@ def first_decode_logits(engine, prompts, new_tokens):
     return logits
 
 
-def profile_decode(engine, prompts, card, steps: int = 6) -> None:
-    """Where a full decode step's time goes: host wall time of ``steps``
-    steps at batch 8 without and then with torch.profiler, device time by
-    kernel name, and the device's busy share."""
+def profile_steps(engine, kind: str, steps: int, card, label: str,
+                  fresh=None) -> None:
+    """Host wall time of ``steps`` engine steps of ``kind`` without and
+    then with torch.profiler, device time by kernel name, launches a step,
+    and the device's busy share.  ``fresh``, if given, submits the
+    requests of each of the two runs (cancelled after it)."""
     from torch.profiler import ProfilerActivity, profile
-
-    from paddle_tpu_torch.serving.scheduler import RUNNING
-    reqs = [engine.submit(p[:64], 4 * steps) for p in prompts[:8]]
-    while any(r.state != RUNNING for r in reqs):
-        engine.step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        assert engine.step() == "decode"
-    plain_ms = (time.perf_counter() - t0) / steps * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    walls = []
+    for profiled in (False, True):
+        reqs = fresh() if fresh else []
+        torch.cuda.synchronize()
+        if profiled:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.start()
         t0 = time.perf_counter()
         for _ in range(steps):
-            assert engine.step() == "decode"
+            assert engine.step() == kind
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) / steps * 1e3
+        walls.append((time.perf_counter() - t0) / steps * 1e3)
+        if profiled:
+            prof.stop()
+        for r in reqs:
+            engine.cancel(r.rid)
+    plain_ms, wall_ms = walls
     # kernels only: an operator row also carries its kernels' device time
     rows = [e for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
     launches = sum(e.count for e in rows) / steps
-    log(f"  [{card}] decode step at batch 8: {plain_ms:.3f} ms host wall "
-        f"unprofiled, {wall_ms:.3f} ms profiled; device busy "
-        f"{device_ms:.3f} ms a step ({device_ms / wall_ms:.1%} of the "
-        f"profiled wall), {launches:.0f} kernel launches a step")
+    log(f"  [{card}] {label}: {plain_ms:.3f} ms host wall unprofiled, "
+        f"{wall_ms:.3f} ms profiled; device busy {device_ms:.3f} ms a step "
+        f"({device_ms / wall_ms:.1%} of the profiled wall), {launches:.0f} "
+        f"kernel launches a step")
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / steps:9.3f} ms/step "
             f"{e.count / steps:6.0f}x  {e.key[:90]}")
+
+
+def profile_decode(engine, prompts, card, steps: int = 6) -> None:
+    """Where a full decode step's time goes, at batch 8."""
+    from paddle_tpu_torch.serving.scheduler import RUNNING
+    reqs = [engine.submit(p[:64], 4 * steps) for p in prompts[:8]]
+    while any(r.state != RUNNING for r in reqs):
+        engine.step()
+    profile_steps(engine, "decode", steps, card, "decode step at batch 8")
     for r in reqs:
         engine.cancel(r.rid)
+
+
+def profile_prefill(engine, vocab: int, card, steps: int = 3) -> None:
+    """Where a prefill step's time goes: the full chunks of one prompt of
+    ``steps`` chunks, a fresh prompt for each run (the prefix cache finds
+    nothing; the request is cancelled before its first decode)."""
+    rng = np.random.default_rng(SEED + 2)
+    chunk = engine.prefill_chunk
+
+    def fresh():
+        prompt = [int(t) for t in rng.integers(1, vocab, steps * chunk)]
+        return [engine.submit(prompt, 1)]
+
+    profile_steps(engine, "prefill", steps, card,
+                  f"prefill step ({chunk}-token chunk)", fresh)
 
 
 SERVE_KW = dict(block_size=16, max_batch=8, prefill_chunk=256,
@@ -1806,10 +1876,11 @@ def phase_quant_serve(card):
 
 
 def phase_profiles(card) -> None:
-    """Where the time goes: torch.profiler breakdowns of batch-8 decode
-    steps (bf16, then int8 weights with the int8 pool) and of one train
-    step.  They come after every timed phase: a profiler run slows the
-    host side of later work in the same process (measured on the card: the
+    """Where the time goes: torch.profiler breakdowns of 256-token prefill
+    chunks and batch-8 decode steps (bf16; int8 weights with the int8 pool;
+    int4 weights with the bf16 pool) and of one train step.  They come after every timed phase: a
+    profiler run slows the host side of later work in the same process
+    (measured on the card: the
     train phase's timed steps took 550-900 ms each after one, 522 ms
     without), while the profiled work itself is unaffected."""
     from paddle_tpu_torch import flags
@@ -1819,23 +1890,24 @@ def phase_profiles(card) -> None:
     from paddle_tpu_torch.serving.engine import ServingEngine
     log("[9/9] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
-    model = LlamaForCausalLM(cfg, seed=SEED)
     prompts = serve_prompts(SEED, cfg.vocab_size)
-    for bits in (None, 8):
+    for bits, kv, label in ((None, "off", "bf16"),
+                            (8, "int8", "int8 weights and int8 KV"),
+                            (4, "off", "int4 weights and bf16 KV")):
+        model = LlamaForCausalLM(cfg, seed=SEED)
         if bits:
             quantize_for_inference(model, bits=bits)
-            flags.set_flags({"serving_kv_quant": "int8"})
+        flags.set_flags({"serving_kv_quant": kv})
         try:
             engine = ServingEngine(model, num_blocks=2048, **SERVE_KW)
         finally:
             flags.set_flags({"serving_kv_quant": "off"})
         engine.warmup()
-        log(f"  serve, {'int8 weights and int8 KV' if bits else 'bf16'}:")
+        log(f"  serve, {label}:")
+        profile_prefill(engine, cfg.vocab_size, card)
         profile_decode(engine, prompts, card)
-        del engine
+        del engine, model
         torch.cuda.empty_cache()
-    del model
-    torch.cuda.empty_cache()
     layers, _, model, opt, step = train_setup()
     step()                                   # warm-up
     log(f"  train, {layers} layers:")

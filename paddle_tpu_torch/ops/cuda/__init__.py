@@ -13,4 +13,4 @@ from .flash_attention import (  # noqa: F401
     varlen_flash_dkv_ref, varlen_flash_dq, varlen_flash_dq_ref,
     varlen_flash_fwd, varlen_flash_fwd_ref)
 from .quant_matmul import (  # noqa: F401
-    quant_matmul, quant_matmul_ref, use_quant_kernel)
+    qmm_route, quant_matmul, quant_matmul_ref, use_quant_kernel)

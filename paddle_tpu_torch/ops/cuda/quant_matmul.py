@@ -1,23 +1,29 @@
-"""Weight-only int8/int4 matmul: the CUDA kernel's wrapper and its plain
+"""Weight-only int8/int4 matmul: the CUDA kernels' wrapper and their plain
 PyTorch version.
 
 Counterpart of ``paddle_tpu/ops/pallas/quant_matmul.py`` (TPU kernels
 ``_qmm_kernel_i8`` and ``_qmm_kernel_i4``; plain version
-``quant_matmul_xla``); the kernel is ``csrc/quant_matmul.cu``.
+``quant_matmul_xla``); the kernels are ``csrc/quant_matmul.cu``.
 
 The weight layout is ``quantize/core.quantize_weight``'s: int8 codes
 ``(kp, N)`` or nibble-packed int4 codes ``(kp / 2, N)`` plus f32 scales
 ``(kp / group, N)``, where ``kp`` pads the in dim up to a group multiple.
 The TPU kernel's tile rules (``fallback_reason``) are not the port's: the
-CUDA kernel takes any M, K, N and group and contracts only the first K
-code rows.
+CUDA kernels take any M, K, N and group.
+
+``qmm_route`` names the route a call takes, from the input alone:
+float16/bfloat16 x with ``group % 16 == 0`` the tensor-core kernels (exact
+integer codes on 16-bit tensor cores, group scales applied to the f32
+accumulators, one launch a call), anything else the f32 FMA kernels.  The
+library's ``qmm_plan`` applies the same rule and chooses the kernel, which
+``qmm`` launches; ``qmm_route`` states the rule for callers.
 
 ``quant_matmul`` checks its arguments, then computes the plain version
-for CPU tensors and launches the kernel for CUDA tensors — there is no
+for CPU tensors and launches a kernel for CUDA tensors — there is no
 other route, and no fallback from a failed build or launch.  Layers pick
 ``quant_matmul`` or ``quant_matmul_ref`` once, at construction, by
 ``use_quant_kernel`` (``FLAGS_weight_quant_kernel``).
-``LAUNCH_COUNTS["qmm_i8"]``/``["qmm_i4"]`` count kernel launches.
+``LAUNCH_COUNTS["qmm_i8"]``/``["qmm_i4"]`` count calls that launched.
 """
 
 from __future__ import annotations
@@ -31,7 +37,8 @@ from ...flags import get_flags
 from . import _build
 from .attention import _DTYPE_CODES, LAUNCH_COUNTS
 
-__all__ = ["quant_matmul", "quant_matmul_ref", "use_quant_kernel"]
+__all__ = ["qmm_route", "quant_matmul", "quant_matmul_ref",
+           "use_quant_kernel"]
 
 LAUNCH_COUNTS.update({"qmm_i8": 0, "qmm_i4": 0})
 
@@ -46,6 +53,18 @@ def use_quant_kernel(device) -> bool:
     if mode in ("off", "0", "false"):
         return False
     return torch.device(device).type == "cuda"
+
+
+def qmm_route(dtype, group: int) -> str:
+    """The kernel a CUDA call takes: ``"tensor_cores"`` for float16 or
+    bfloat16 x with ``group % 16 == 0`` (codes are exact in 16 bits, so the
+    16-bit tensor cores with f32 accumulators give the f32 result up to
+    rounding), else ``"fma"`` (float32 x: rounding it to 16 bits would
+    change the result; other groups: a group ends inside a 16-deep
+    product).  ``csrc/quant_matmul.cu`` applies the same rule."""
+    if dtype in (torch.float16, torch.bfloat16) and int(group) % 16 == 0:
+        return "tensor_cores"
+    return "fma"
 
 
 def _expected_groups(in_features: int, group: int, bits: int) -> int:
@@ -95,19 +114,23 @@ def quant_matmul_ref(x, qw, scales, *, bits: int, group: int):
 
 
 _LIB = None
-# (device index, m, k, n, bits, dtype) -> (splits, rows a split)
-_PLANS: Dict[tuple, Tuple[int, int]] = {}
+# (device index, m, k, n, group, bits, dtype, aligned) -> (kernel, splits,
+# rows a split, counters)
+_PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
+# (device index, stream) -> (f32 partials, int32 counters) of the
+# tensor-core kernel's split merge; the kernel leaves the counters at 0
+_WORKSPACE: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("quant_matmul")
-        lib.qmm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + \
+        lib.qmm.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + \
             [ctypes.c_void_p]
         lib.qmm.restype = ctypes.c_int
-        lib.qmm_plan.argtypes = [ctypes.c_int] * 5 + \
-            [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.qmm_plan.argtypes = [ctypes.c_int] * 7 + \
+            [ctypes.POINTER(ctypes.c_int)] * 4
         lib.qmm_plan.restype = ctypes.c_int
         lib.qmm_error_string.argtypes = [ctypes.c_int]
         lib.qmm_error_string.restype = ctypes.c_char_p
@@ -115,18 +138,37 @@ def _lib() -> ctypes.CDLL:
     return _LIB
 
 
-def _plan(lib, device, m, k, n, bits, dtype_code) -> Tuple[int, int]:
-    key = (device, m, k, n, bits, dtype_code)
+def _plan(lib, device, m, k, n, group, bits, dtype_code, aligned):
+    key = (device, m, k, n, group, bits, dtype_code, aligned)
     plan = _PLANS.get(key)
     if plan is None:
-        splits, ks = ctypes.c_int(), ctypes.c_int()
-        rc = lib.qmm_plan(m, k, n, bits, dtype_code, ctypes.byref(splits),
-                          ctypes.byref(ks))
+        out = [ctypes.c_int() for _ in range(4)]
+        rc = lib.qmm_plan(m, k, n, group, bits, dtype_code, aligned,
+                          *(ctypes.byref(v) for v in out))
         if rc != 0:
             raise RuntimeError(f"qmm_plan failed: CUDA error {rc} "
                                f"({lib.qmm_error_string(rc).decode()})")
-        plan = _PLANS[key] = (splits.value, ks.value)
+        plan = _PLANS[key] = tuple(v.value for v in out)
     return plan
+
+
+def _workspace(device, stream: int, partials: int, counters: int):
+    """The tensor-core kernel's split workspace for (device, stream), grown
+    to ``partials`` f32 values and ``counters`` zeroed counters; not cached
+    while the stream is captured."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.empty(partials, dtype=torch.float32, device=device),
+                torch.zeros(counters, dtype=torch.int32, device=device))
+    key = (device.index, stream)
+    ws = _WORKSPACE.get(key)
+    if ws is None or ws[0].numel() < partials or ws[1].numel() < counters:
+        have = (0, 0) if ws is None else (ws[0].numel(), ws[1].numel())
+        ws = (torch.empty(max(partials, have[0]), dtype=torch.float32,
+                          device=device),
+              torch.zeros(max(counters, have[1]), dtype=torch.int32,
+                          device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def _launch(x, qw, scales, bits: int, group: int):
@@ -150,13 +192,24 @@ def _launch(x, qw, scales, bits: int, group: int):
         # the kernel launches on the calling thread's current device
         with torch.cuda.device(dev):
             return _launch(x, qw, scales, bits, group)
-    splits, ks = _plan(lib, dev.index, m, k, n, bits, code)
-    scratch = torch.empty(splits * m * n, dtype=torch.float32,
-                          device=dev) if splits > 1 else None
+    # the prefill's wgmma kernel reads x and the codes by TMA, from 16-byte
+    # aligned bases: the plan's kernel depends on it
+    aligned = int(x2.data_ptr() % 16 == 0 and qw.data_ptr() % 16 == 0)
+    kernel, splits, ks, counters = _plan(lib, dev.index, m, k, n, group, bits,
+                                         code, aligned)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch = cnt = None
+    if counters:
+        # a tensor-core kernel's split merge, in the same launch
+        scratch, cnt = _workspace(dev, stream, splits * m * n, counters)
+    elif splits > 1:
+        scratch = torch.empty(splits * m * n, dtype=torch.float32,
+                              device=dev)
     rc = lib.qmm(x2.data_ptr(), qw.data_ptr(), scales.data_ptr(),
                  out.data_ptr(), None if scratch is None
-                 else scratch.data_ptr(), m, k, n, group, bits, code,
-                 splits, ks, torch.cuda.current_stream(dev).cuda_stream)
+                 else scratch.data_ptr(), None if cnt is None
+                 else cnt.data_ptr(), kernel, m, k, n, group, bits, code,
+                 splits, ks, stream)
     if rc != 0:
         raise RuntimeError(f"qmm launch failed: CUDA error {rc} "
                            f"({lib.qmm_error_string(rc).decode()})")
@@ -167,8 +220,8 @@ def _launch(x, qw, scales, bits: int, group: int):
 def quant_matmul(x, qw, scales, *, bits: int, group: int):
     """``x`` (..., K) float32/float16/bfloat16 times the quantized weight
     (``quantize_weight``'s codes and scales for in dim K) → (..., N) in
-    x's dtype, with f32 products and sums.  CPU tensors get the plain
-    version; CUDA tensors the kernel."""
+    x's dtype, with f32 sums of exact products (``qmm_route``).  CPU
+    tensors get the plain version; CUDA tensors a kernel."""
     _check(x, qw, scales, bits, group)
     if x.device.type == "cpu":
         return quant_matmul_ref(x, qw, scales, bits=bits, group=group)

@@ -6,6 +6,7 @@ only PyTorch is installed:
 
 Without a CUDA device every test here skips (decided in a fixture)."""
 
+import importlib
 import math
 
 import numpy as np
@@ -22,7 +23,7 @@ from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.ops.cuda.attention import (
     LAUNCH_COUNTS, ragged_paged_attention_decode,
     ragged_paged_attention_decode_ref)
-from paddle_tpu_torch.ops.cuda.quant_matmul import (quant_matmul,
+from paddle_tpu_torch.ops.cuda.quant_matmul import (qmm_route, quant_matmul,
                                                     quant_matmul_ref)
 from paddle_tpu_torch.quantize.core import (quantize_kv_rows,
                                             quantize_weight)
@@ -434,6 +435,178 @@ def test_quant_matmul_kernel_matches_plain_version(cuda_device, bits, dtype,
     assert got.dtype == dtype and got.shape == (m, n)
     diff = (got.float() - want.float()).norm().item()
     assert diff <= QMM_REL[dtype] * want.float().norm().item(), diff
+
+
+def qmm_inputs(device, m, k, n, bits, group, dtype, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn(k, n, generator=g, device=device) * 0.02
+    x = torch.randn(m, k, generator=g, device=device).to(dtype)
+    qw, s, grp = quantize_weight(w, bits=bits, group=group)
+    return x, qw, s, grp
+
+
+def qmm_close(got, want, dtype):
+    diff = (got.float() - want.float()).norm().item()
+    assert diff <= QMM_REL[dtype] * want.float().norm().item(), diff
+
+
+# The tensor-core route keeps the reference's rounding: exact products and
+# group sums scaled in f32, so kernel and plain version differ only where
+# the f32 sums round to different 16-bit outputs (a few in a thousand).
+# Codes scaled into 16 bits before the product (c * s rounded: every
+# weight moved by up to 2^-9 in bf16, 2^-12 in fp16) read about 3e-3
+# (bf16) and 4e-4 (fp16) here and fail.  Held where the output has at
+# least QMM_TC_MIN_OUT values: one output that rounds the other way weighs
+# up to 2^-7 of its value, too much in a few hundred.
+QMM_TC_REL = {torch.float16: 1e-4, torch.bfloat16: 3e-4}
+QMM_TC_MIN_OUT = 16384
+
+
+def qmm_tc_close(got, want, dtype):
+    rel = ((got.float() - want.float()).norm() /
+           want.float().norm()).item()
+    print(f"qmm_tc_rel {str(dtype).replace('torch.', '')} "
+          f"{tuple(got.shape)} {rel:.3e}")
+    assert rel <= QMM_TC_REL[dtype], rel
+
+
+# the tensor-core route (16-bit x, group % 16 == 0): decode rows (M <= 32,
+# one to four row tiles), the prefill shapes above it (the wgmma kernel
+# where TMA reads x and the codes; mma.sync for K % 8 != 0 or a group not
+# a multiple of 64), K in several splits (4096, 11008), K padded to a
+# group multiple with a tail short of a 64-row stage, odd N (plain loads),
+# the serve's widest N, four group ends in one 64-row stage (group 16) and
+# groups that straddle stages (48)
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("m,k,n,group", [
+    (1, 4096, 32000, 128),
+    (8, 4096, 11008, 128),
+    (17, 4096, 1024, 128),
+    (32, 11008, 4096, 128),
+    (33, 4096, 1024, 128),
+    (64, 4096, 4096, 128),
+    (256, 4096, 11008, 128),
+    (8, 300, 77, 64),
+    (256, 300, 77, 64),
+    (64, 512, 256, 32),
+    (8, 512, 256, 16),
+    (17, 480, 160, 48),
+    (40, 480, 160, 48),
+], ids=["m1_lm_head", "m8", "m17", "m32_down", "m33", "m64", "m256",
+        "m8_padded_k_odd_n", "m256_padded_k_odd_n", "m64_group32",
+        "m8_group16", "m17_group48", "m40_group48"])
+def test_quant_matmul_tensor_cores_match_plain_version(cuda_device, bits,
+                                                       dtype, m, k, n, group):
+    x, qw, s, grp = qmm_inputs(cuda_device, m, k, n, bits, group, dtype,
+                               m * k + n)
+    assert qmm_route(dtype, grp) == "tensor_cores"
+    before = dict(LAUNCH_COUNTS)
+    got = quant_matmul(x, qw, s, bits=bits, group=grp)
+    torch.cuda.synchronize()
+    assert {n_: LAUNCH_COUNTS[n_] - before[n_] for n_ in before} == \
+        {n_: int(n_ == f"qmm_i{bits}") for n_ in before}
+    want = quant_matmul_ref(x, qw, s, bits=bits, group=grp)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert bool(torch.isfinite(got).all())
+    qmm_close(got, want, dtype)
+    if m * n >= QMM_TC_MIN_OUT:
+        qmm_tc_close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16,
+                                   torch.bfloat16])
+@pytest.mark.parametrize("group", [128, 96, 64, 16, 8, 3])
+@pytest.mark.parametrize("m", [8, 256])
+def test_quant_matmul_plan_takes_the_route_qmm_route_names(cuda_device,
+                                                           dtype, group, m):
+    """The library chooses the kernel (0 FMA, 1 mma.sync, 2 wgmma) by the
+    rule ``qmm_route`` states; the wgmma kernel only for 16-byte aligned
+    bases and groups of whole 128-row stages."""
+    # the module (the package's name quant_matmul is the function)
+    qm = importlib.import_module("paddle_tpu_torch.ops.cuda.quant_matmul")
+    code = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}[dtype]
+    lib = qm._lib()
+    for aligned in (1, 0):
+        kernel, splits, ks, counters = qm._plan(
+            lib, cuda_device.index or 0, m, 4096, 4096, group, 8, code,
+            aligned)
+        tc = qmm_route(dtype, group) == "tensor_cores"
+        assert (kernel != 0) == tc
+        assert (kernel == 2) == (tc and m > 32 and group % 128 == 0 and
+                                 bool(aligned))
+        assert splits * ks >= 4096
+        assert (counters > 0) == (tc and splits > 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_tensor_cores_on_a_second_card(cuda_device, bits):
+    """A kernel's shared-memory limit is raised on each device it launches
+    on: a prefill product on card 0, then on card 1 (the wgmma kernel
+    takes about 196 KB, the 64-row mma.sync one about 55 KB)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    for dev in (torch.device("cuda", 0), torch.device("cuda", 1)):
+        for group in (128, 64):  # wgmma; mma.sync at 64-row tiles
+            x, qw, s, grp = qmm_inputs(dev, 256, 4096, 4096, bits, group,
+                                       torch.bfloat16, 5)
+            got = quant_matmul(x, qw, s, bits=bits, group=grp)
+            torch.cuda.synchronize(dev)
+            assert got.device == dev
+            qmm_close(got, quant_matmul_ref(x, qw, s, bits=bits, group=grp),
+                      torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 256])
+def test_quant_matmul_tensor_cores_take_a_misaligned_x(cuda_device, bits,
+                                                       m):
+    """x two bytes past a 16-byte boundary: no TMA or 16-byte copy can
+    read it, so the kernels load it plainly."""
+    x, qw, s, grp = qmm_inputs(cuda_device, m, 4096, 1024, bits, 128,
+                               torch.bfloat16, 11)
+    buf = torch.empty(m * 4096 + 1, dtype=x.dtype, device=cuda_device)
+    xm = buf[1:].view(m, 4096)
+    xm.copy_(x)
+    assert xm.data_ptr() % 16
+    qmm_close(quant_matmul(xm, qw, s, bits=bits, group=grp),
+              quant_matmul_ref(x, qw, s, bits=bits, group=grp),
+              torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m", [8, 256])
+def test_quant_matmul_tensor_cores_rerun_bitwise_equal(cuda_device, bits, m):
+    """The split merge adds the splits in split order inside the launch:
+    two calls give the same bits."""
+    x, qw, s, grp = qmm_inputs(cuda_device, m, 4096, 4096, bits, 128,
+                               torch.bfloat16, 7)
+    a = quant_matmul(x, qw, s, bits=bits, group=grp)
+    b = quant_matmul(x, qw, s, bits=bits, group=grp)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_matmul_workspace_takes_a_smaller_shape_after_a_larger(
+        cuda_device, bits):
+    """The split workspace of a (device, stream) is grown for a large call
+    and reused, counters and all, by smaller ones after it."""
+    large = qmm_inputs(cuda_device, 256, 4096, 11008, bits, 128,
+                       torch.bfloat16, 8)
+    small = qmm_inputs(cuda_device, 8, 1024, 512, bits, 64, torch.bfloat16,
+                       9)
+    for x, qw, s, grp in (large, small, large, small):
+        got = quant_matmul(x, qw, s, bits=bits, group=grp)
+        want = quant_matmul_ref(x, qw, s, bits=bits, group=grp)
+        torch.cuda.synchronize()
+        qmm_close(got, want, torch.bfloat16)
 
 
 @pytest.mark.gpu

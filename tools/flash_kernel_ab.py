@@ -33,8 +33,17 @@ lengths; 4 x 4096 tokens) and at the served decode's lengths over tables
 table so), through each tree's own ``attention.py``, with its outputs'
 largest absolute distance from this tree's plain versions.  Trees that
 differ in a constant of the kernel (a split's pages, say) compare so.
-``--kernels flash,rpa`` times both.  Run it from the repository root on a
-machine with a card and nvcc.
+
+    python3 tools/flash_kernel_ab.py OLD_CSRC NEW_CSRC --kernels qmm
+
+times the weight-only quantized matmuls (``qmm_i8``, ``qmm_i4``) of each
+tree through its own ``quant_matmul.py``: bf16 x, group 128 (the
+quantized serve's), at M=8 (a decode step) and M=256 (a prefill chunk)
+over Llama-7B's four Linear shapes (chip_smoke.py's ``LLAMA7B_LINEARS``)
+and at M=1 over the lm_head, each with its largest relative L2 distance
+from this tree's plain version, and the sum over one decode step's 225
+products at M=8.  ``--kernels flash,rpa,qmm`` times all three.  Run it
+from the repository root on a machine with a card and nvcc.
 """
 
 from __future__ import annotations
@@ -54,12 +63,16 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-from chip_smoke import (PACKED_DOCS, SERVE_LENS, cu_of,  # noqa: E402
-                        decode_shapes, nvidia_smi, quant_pools, rpa_inputs,
-                        time_ms)
+from chip_smoke import (LLAMA7B_LINEARS, PACKED_DOCS,  # noqa: E402
+                        SERVE_LENS, cu_of, decode_shapes, nvidia_smi,
+                        quant_pools, rpa_inputs, time_ms)
 from paddle_tpu_torch.ops.cuda import _build  # noqa: E402
 from paddle_tpu_torch.ops.cuda import attention as rpa_ref  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as ref  # noqa: E402
+from paddle_tpu_torch.ops.cuda.quant_matmul import (  # noqa: E402
+    quant_matmul_ref)
+from paddle_tpu_torch.quantize.core import (  # noqa: E402
+    dequantize_weight, quantize_weight)
 
 
 def build(trees, sources):
@@ -92,18 +105,25 @@ def build(trees, sources):
 
 
 def wrappers(index: int, tree: str, lib_dir: Path):
-    """The tree's own flash_attention and attention modules, their kernels
-    loaded from lib_dir."""
-    pkg_dir = Path(tree).resolve().parent
-    if not (pkg_dir / "flash_attention.py").exists():
+    """The tree's own flash_attention, attention and quant_matmul modules
+    (the package above its ``ops/cuda`` loaded under a name of its own,
+    without running its ``__init__``), their kernels loaded from
+    lib_dir."""
+    cuda_dir = Path(tree).resolve().parent
+    if not (cuda_dir / "flash_attention.py").exists():
         raise FileNotFoundError(f"no flash_attention.py beside {tree}")
     name = f"_flash_ab_tree{index}"
-    pkg = types.ModuleType(name)
-    pkg.__path__ = [str(pkg_dir)]
-    sys.modules[name] = pkg
-    fa = importlib.import_module(f"{name}.flash_attention")
+    for mod, path in ((name, cuda_dir.parents[1]),
+                      (f"{name}.ops", cuda_dir.parent),
+                      (f"{name}.ops.cuda", cuda_dir)):
+        pkg = types.ModuleType(mod)
+        pkg.__path__ = [str(path)]
+        sys.modules[mod] = pkg
+    cuda = f"{name}.ops.cuda"
+    fa = importlib.import_module(f"{cuda}.flash_attention")
     fa._build.load = lambda lib: ctypes.CDLL(str(lib_dir / f"lib{lib}.so"))
-    return fa, importlib.import_module(f"{name}.attention")
+    return (fa, importlib.import_module(f"{cuda}.attention"),
+            importlib.import_module(f"{cuda}.quant_matmul"))
 
 
 def decode_inputs():
@@ -144,6 +164,66 @@ def time_decode(i, tree, attn, cases):
               + f"; max abs err vs plain {err:.3e}", flush=True)
 
 
+def qmm_inputs():
+    """{(bits, m, k, n): (x, codes, scales, group)}: bf16 x and weights
+    N(0, 0.02) quantized with group 128 on the card, at M=8 and M=256 over
+    Llama-7B's Linear shapes and at M=1 over the lm_head."""
+    shapes = [(m, k, n) for m in (8, 256) for (k, n) in LLAMA7B_LINEARS]
+    shapes.append((1, 4096, 32000))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    cases = {}
+    for bits in (8, 4):
+        weights = {}
+        for m, k, n in shapes:
+            if (k, n) not in weights:
+                w = torch.randn(k, n, generator=g, device="cuda") * 0.02
+                weights[(k, n)] = quantize_weight(w, bits=bits, group=128)
+                del w
+            qw, s, grp = weights[(k, n)]
+            x = torch.randn(m, k, generator=g, device="cuda").to(
+                torch.bfloat16)
+            cases[(bits, m, k, n)] = (x, qw, s, grp)
+    return cases
+
+
+def time_qmm_library(cases):
+    """The yardstick at each shape: one bf16 ``torch.matmul`` of x and the
+    weight dequantized to bf16 beforehand (its bytes are 2x int8's)."""
+    parts = []
+    for (bits, m, k, n), (x, qw, s, grp) in cases.items():
+        if bits != 8:
+            continue
+        w16 = dequantize_weight(qw, s, bits, grp, k).to(x.dtype)
+        parts.append(f"M={m} {k}x{n} "
+                     f"{time_ms(lambda: torch.matmul(x, w16)):.4f}")
+        del w16
+    print("library (bf16 torch.matmul, dequantized weight), ms: " +
+          ", ".join(parts), flush=True)
+
+
+def time_qmm(i, tree, qm, cases):
+    """One line a bit width: each shape's time in the tree, the decode
+    step's 225 products at M=8, and the largest distance from this tree's
+    plain version."""
+    for bits in (8, 4):
+        parts, err, step = [], 0.0, 0.0
+        for (b, m, k, n), (x, qw, s, grp) in cases.items():
+            if b != bits:
+                continue
+            t = time_ms(lambda: qm.quant_matmul(x, qw, s, bits=bits,
+                                                group=grp))
+            if m == 8:
+                step += t * LLAMA7B_LINEARS[(k, n)]
+            parts.append(f"M={m} {k}x{n} {t:.4f}")
+            err = max(err, rel(qm.quant_matmul(x, qw, s, bits=bits,
+                                               group=grp),
+                               quant_matmul_ref(x, qw, s, bits=bits,
+                                                group=grp)))
+        print(f"tree {i} ({tree}) qmm_i{bits} ms: " + ", ".join(parts)
+              + f"; decode step (225 at M=8) {step:.3f} ms; max rel L2 vs "
+              f"plain {err:.2e}", flush=True)
+
+
 def rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -155,7 +235,8 @@ def main() -> int:
                     help="comma-separated tree indices (default: 0..n-1 "
                          "then n-1..0)")
     ap.add_argument("--kernels", default="flash",
-                    help="comma-separated: flash, rpa (default flash)")
+                    help="comma-separated: flash, rpa, qmm (default "
+                         "flash)")
     args = ap.parse_args()
     kinds = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -166,7 +247,8 @@ def main() -> int:
              else list(range(n)) + list(reversed(range(n))))
     t0 = time.perf_counter()
     libs = build(args.trees, (["flash_*.cu"] if "flash" in kinds else [])
-                 + (["rpa_decode.cu"] if "rpa" in kinds else []))
+                 + (["rpa_decode.cu"] if "rpa" in kinds else [])
+                 + (["quant_matmul.cu"] if "qmm" in kinds else []))
     mods = [wrappers(i, t, d) for i, (t, d) in enumerate(zip(args.trees,
                                                              libs))]
     print(f"built {n} trees in {time.perf_counter() - t0:.1f} s")
@@ -175,6 +257,12 @@ def main() -> int:
         cases = decode_inputs()
         for i in order:
             time_decode(i, args.trees[i], mods[i][1], cases)
+    if "qmm" in kinds:
+        cases = qmm_inputs()
+        time_qmm_library(cases)
+        for i in order:
+            time_qmm(i, args.trees[i], mods[i][2], cases)
+        del cases
     if "flash" not in kinds:
         return 0
     g = torch.Generator(device="cuda").manual_seed(0)
