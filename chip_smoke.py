@@ -26,15 +26,21 @@ and prints no result line):
    functionals at head_dim 136, 192, 256 and 272 on the card against the
    same calls on the CPU (the kernels' plain versions), with their routes;
 4. serve  — Llama-7B at full width and depth (random weights from a seed,
-   bf16) behind ``ServingEngine``: 10 greedy requests, launch counts read
-   around the run, first-decode-step logits held against an engine on the
-   plain gather path, and a tiny f32 model's tokens held against a
+   bf16) behind ``ServingEngine``, whose two step signatures are captured
+   into CUDA graphs by its warmup and replayed at every step: 10 greedy
+   requests, launch counts read around the warmup and the run (each
+   graph's launches a replay times its replays), 0 recaptures after
+   warmup, a decode replay against its body run eagerly on the same
+   inputs, first-decode-step logits held against an engine on the plain
+   gather path, and a tiny f32 model's tokens held against a
    full-recompute greedy reference;
 5. train  — Llama-7B width (hidden 4096, intermediate 11008, 32 heads,
    seq 4096, bf16; the layer count by bench.py's memory rule) trained
-   eagerly with AdamW, bench_llama's optimizer and data: one warm-up and
-   three timed steps on one batch, launch counts read around them, losses
-   finite and falling;
+   with AdamW, bench_llama's optimizer and data: eagerly, one warm-up and
+   three timed steps on one batch with launch counts read around them;
+   then the same model and optimizer through ``TrainStepCapture`` (warmup,
+   capture, one replay and three timed replays, each flash kernel once a
+   layer a replay, 0 recaptures); losses finite and falling;
 6. packed attention — ``flash_attn_unpadded`` forward and backward at
    Llama-7B's attention width (32 heads x 128) for each of 32 layers on
    seeded q/k/v, T = 4096 tokens in six documents, causal, bf16: launch
@@ -42,19 +48,22 @@ and prints no result line):
    document's equal to dense ``flash_sdpa`` on that document alone;
 7. train parity — a tiny f32 Llama takes three AdamW steps on the card
    (through the kernels) and on the CPU (through their plain versions)
-   in this process; losses and parameters must agree;
+   in this process; losses and parameters must agree; then five steps
+   with a changing learning rate and the clip through the captured step,
+   against the same eager steps on the card and the CPU's step;
 8. quantized serve — Llama-7B at full width and depth quantized on the
    card by ``quantize_for_inference``: (a) int8 weights with the int8 KV
    pool, (b) int4 weights with the bf16 pool, each serving phase 4's
-   traffic with launch counts read around the run, the report's SNR
+   traffic through the captured engine as phase 4 does, the report's SNR
    checked, and first-decode-step logits held against the same quantized
    model on the plain paths (and printed against the bf16 model's); then
    a tiny f32 Llama with int8 weights and int8 KV on the card vs the CPU;
 9. profiles — torch.profiler breakdowns of 256-token prefill chunks and
-   batch-8 decode steps (bf16; int8 weights and KV; int4 weights) and of
-   one train step,
-   after every timed phase, since a profiler run slows the host side of
-   later work.
+   batch-8 decode steps (replays; bf16; int8 weights and KV; int4
+   weights), of one eager train step and of one train replay, each
+   replay's kernels counted by name against its graph's record, after
+   every timed phase, since a profiler run slows the host side of later
+   work.
 
 The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 ``launches`` counted on the path named by its ``launches_in``); the last is
@@ -128,6 +137,24 @@ QMM_LAUNCHES_A_STEP = sum(LLAMA7B_LINEARS.values())          # 225
 # Tiny f32 model with int8 weights and KV, card vs CPU: first-decode logits
 # within 1e-4 relative L2 (f32 on both sides, sums in another order)
 QUANT_PARITY_RTOL = 1e-4
+# Captured train step vs the eager loop on the card and vs the CPU (tiny
+# f32 model, 5 steps): against the eager loop the same kernels in the same
+# order, only the update's learning rate and bias corrections are f32
+# tensors in the graph and f64 Python floats eagerly (one f32 ulp apart);
+# against the CPU also the plain versions' other summation order (the
+# eager card-vs-CPU parity above reads about 3e-6).  Losses and parameters
+# within 1e-5 relative
+CAPTURE_RTOL = 1e-5
+# The profiler's kernel names of each counted kernel (the counts name the
+# wrapper's entry point; the decode kernel's two entry points and the
+# quantized matmul's two widths share one template each)
+KERNEL_NAMES = {
+    "flash_fwd": r"flash_fwd_\w*kernel", "flash_dq": r"flash_dq_\w*kernel",
+    "flash_dkv": r"flash_dkv_\w*kernel",
+    "flash_bwd_delta": r"flash_bwd_delta_kernel",
+    "rpa_decode": r"rpa_decode_kernel", "rpa_decode_quant": r"rpa_decode_kernel",
+    "qmm_i8": r"qmm_(tc|wg|skinny|tiled)_kernel",
+    "qmm_i4": r"qmm_(tc|wg|skinny|tiled)_kernel"}
 
 
 def log(msg: str = "") -> None:
@@ -1251,9 +1278,14 @@ def compare_prompts(vocab: int):
             for n in (20, 57, 96, 128)]
 
 
-def first_decode_logits(engine, prompts, new_tokens):
-    """Prefill every prompt, then run one decode step over all of them;
-    return that step's logits for the live rows and cancel the requests."""
+def first_decode_logits(engine, prompts, new_tokens, eager_check=False):
+    """Prefill every prompt, then run one decode step over all of them (a
+    replay of the engine's decode graph); return that step's logits for the
+    live rows and cancel the requests.  With ``eager_check`` the step's body
+    then runs once eagerly on the same static inputs (its writes repeat the
+    same slots): its tokens must equal the replay's, and the logits'
+    relative L2 difference is printed (0 expected: the same kernels on the
+    same inputs)."""
     from paddle_tpu_torch.serving.scheduler import RUNNING
     reqs = [engine.submit(p, new_tokens) for p in prompts]
     while True:
@@ -1267,17 +1299,45 @@ def first_decode_logits(engine, prompts, new_tokens):
             raise AssertionError("comparison requests did not start")
     assert all(r.state == RUNNING for r in reqs)
     logits = engine.last_logits[:len(reqs)].float().clone()
+    if eager_check:
+        assert engine.graphs()["decode"].replays >= 1
+        eager = engine._run_eagerly("decode")[:len(reqs)].float()
+        rel = ((eager - logits).norm() / logits.norm()).item()
+        same = bool(torch.equal(eager.argmax(-1), logits.argmax(-1)))
+        log(f"  decode replay vs its body run eagerly on the same inputs: "
+            f"tokens equal {same}, logits relative L2 {rel:.3e}")
+        if not same:
+            raise AssertionError("the replay's tokens differ from the "
+                                 "eager body's")
     for r in reqs:
         engine.cancel(r.rid)
     return logits
 
 
+def check_profiled(rows, launches, replays: int, label: str) -> None:
+    """The profiler's kernels against a graph's recorded launches a replay:
+    for each counted kernel, the kernels of its name over ``replays``
+    replays must be ``launches[name]`` a replay (the wrapper counts run at
+    the capture only, so this is what shows the replays launch them)."""
+    got = {}
+    for name in launches:
+        pattern = re.compile(KERNEL_NAMES[name])
+        got[name] = sum(e.count for e in rows if pattern.search(e.key)) \
+            / replays
+    log(f"    {label}: profiler kernels a replay {got}, recorded at the "
+        f"capture {dict(launches)}")
+    if got != {n: float(v) for n, v in launches.items()}:
+        raise AssertionError(f"{label}: the profiler counts {got} kernels a "
+                             f"replay, the capture recorded {launches}")
+
+
 def profile_steps(engine, kind: str, steps: int, card, label: str,
                   fresh=None) -> None:
-    """Host wall time of ``steps`` engine steps of ``kind`` without and
-    then with torch.profiler, device time by kernel name, launches a step,
-    and the device's busy share.  ``fresh``, if given, submits the
-    requests of each of the two runs (cancelled after it)."""
+    """Host wall time of ``steps`` engine steps of ``kind`` (replays of its
+    graph) without and then with torch.profiler, device time by kernel
+    name, launches a step, the device's busy share, and the counted
+    kernels a replay against the graph's record.  ``fresh``, if given,
+    submits the requests of each of the two runs (cancelled after it)."""
     from torch.profiler import ProfilerActivity, profile
     walls = []
     for profiled in (False, True):
@@ -1309,6 +1369,7 @@ def profile_steps(engine, kind: str, steps: int, card, label: str,
     for e in sorted(rows, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / steps:9.3f} ms/step "
             f"{e.count / steps:6.0f}x  {e.key[:90]}")
+    check_profiled(rows, engine.graphs()[kind].launches, steps, label)
 
 
 def profile_decode(engine, prompts, card, steps: int = 6) -> None:
@@ -1342,20 +1403,62 @@ SERVE_KW = dict(block_size=16, max_batch=8, prefill_chunk=256,
 
 
 def serve_traffic(engine, cfg, card, new_tokens: int = 32):
-    """The serve traffic through ``engine.generate`` (warmed up first): every
-    launch count set to 0 just before and read just after; outputs, the
-    prefix hit and the copy-on-write checked; the run's numbers printed.
-    Returns (launches, engine.stats)."""
+    """The serve traffic through the captured engine: every launch count set
+    to 0 just before ``engine.warmup()`` (an eager run and a capture of each
+    step signature) and read just after ``engine.generate``, whose every
+    step replays one of the two graphs; outputs, the prefix hit, the
+    copy-on-write and 0 recaptures after warmup checked; the run's numbers
+    printed.  Returns (the wrapper counts, which count the warmup's and the
+    captures' host calls; the launches of the replays, each graph's
+    launches a replay times its replays; each graph's launches a replay;
+    engine.stats)."""
+    from paddle_tpu_torch.jit.api import replayed_launches
     from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
     prompts = serve_prompts(SEED, cfg.vocab_size)
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    outs = engine.generate(prompts, max_new_tokens=new_tokens)
+    engine.warmup()
     torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    # the device span of each decode replay, by CUDA events around it (no
+    # profiler: a profiler session slows the host side of later work)
+    decode = engine.graphs()["decode"]
+    spans = []
+
+    def timed_replay(replay=decode.replay):
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        marks[0].record()
+        out = replay()
+        marks[1].record()
+        spans.append(marks)
+        return out
+    decode.replay = timed_replay
+    t0 = time.perf_counter()
+    try:
+        outs = engine.generate(prompts, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+    finally:
+        del decode.replay
     wall = time.perf_counter() - t0
     launches = dict(LAUNCH_COUNTS)
     stats = dict(engine.stats)
+    span_ms = float(np.mean([a.elapsed_time(b) for a, b in spans]))
+    graphs = engine.graphs()
+    per_replay = {k: dict(g.launches) for k, g in graphs.items()}
+    replayed = replayed_launches(graphs.values())
+    recaptures = engine.health_snapshot()["retraces_after_warmup"]
+    log(f"  warmup (eager run + capture of both signatures) {capture_s:.2f} "
+        f"s; recaptures after warmup {recaptures}; replays: decode "
+        f"{graphs['decode'].replays} x {per_replay['decode']}, prefill "
+        f"{graphs['prefill'].replays} x {per_replay['prefill']} (kernel "
+        f"launches a replay)")
+    if recaptures != 0:
+        raise AssertionError(f"{recaptures} recaptures after warmup")
+    if (graphs["decode"].replays, graphs["prefill"].replays) != (
+            stats["decode_steps"], stats["prefill_steps"]):
+        raise AssertionError(f"replays {graphs} != steps {stats}")
     peak = torch.cuda.max_memory_allocated()
     prefix = engine.kv.prefix_stats()
     reqs = engine.last_requests
@@ -1369,14 +1472,25 @@ def serve_traffic(engine, cfg, card, new_tokens: int = 32):
     log(f"  served {len(outs)} requests x {new_tokens} tokens; prefix "
         f"cache: {prefix['hits']} hits, {prefix['hit_tokens_total']} hit "
         f"tokens, {prefix['cow_copies_total']} copy-on-write")
+    step_ms = stats["decode_seconds"] / stats["decode_steps"] * 1e3
     log(f"  [{card}] tokens/s {toks / wall:.1f} ({toks} tokens in "
         f"{wall:.3f} s); TTFT ms mean {ttft.mean():.2f} p50 "
         f"{np.median(ttft):.2f} max {ttft.max():.2f}; decode step ms "
-        f"{stats['decode_seconds'] / stats['decode_steps'] * 1e3:.3f}; "
-        f"prefill step ms "
+        f"{step_ms:.3f} (host wall; the decode replay's device span "
+        f"{span_ms:.3f} ms, {span_ms / step_ms:.1%} of it); prefill step ms "
         f"{stats['prefill_seconds'] / stats['prefill_steps'] * 1e3:.3f}; "
         f"peak memory {peak / 1e9:.2f} GB")
-    return launches, stats
+    return launches, replayed, per_replay, stats
+
+
+def free_cuda() -> None:
+    """Release what the last phase held (engines hold their graphs, and a
+    model caches its engine: a reference cycle) before the next phase
+    builds Llama-7B."""
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 def phase_serve(card):
@@ -1399,19 +1513,24 @@ def phase_serve(card):
     assert engine._use_kernel, "the engine on the card must use the kernel"
     log(f"  KV pool {engine.kv.pool_bytes() / 1e9:.2f} GB "
         f"({engine.kv.num_blocks} pages of {engine.kv.block_size})")
-    engine.warmup()
-    launches, stats = serve_traffic(engine, cfg, card)
-    expect = stats["decode_steps"] * cfg.num_hidden_layers
+    host, launches, per_replay, stats = serve_traffic(engine, cfg, card)
+    layers = cfg.num_hidden_layers
+    if per_replay != {"decode": {"rpa_decode": layers}, "prefill": {}}:
+        raise AssertionError(f"launches a replay {per_replay}")
+    if not host["rpa_decode"] > 0:
+        raise AssertionError("rpa_decode was not launched in the run")
+    expect = stats["decode_steps"] * layers
     assert launches["rpa_decode"] == expect > 0, (launches, expect)
     log(f"  rpa_decode launches {launches['rpa_decode']} = "
-        f"{stats['decode_steps']} decode steps x {cfg.num_hidden_layers} "
-        f"layers")
+        f"{stats['decode_steps']} decode replays x {layers} a replay "
+        f"(wrapper calls in the run, warmup and capture: "
+        f"{host['rpa_decode']})")
 
     # first decode step of the kernel engine vs an engine on the plain
     # gather path, same weights and prompts
     cmp_prompts = compare_prompts(cfg.vocab_size)
     plain = ServingEngine(model, num_blocks=256, use_kernel=False, **kw)
-    a = first_decode_logits(engine, cmp_prompts, 4)
+    a = first_decode_logits(engine, cmp_prompts, 4, eager_check=True)
     b = first_decode_logits(plain, cmp_prompts, 4)
     rel = ((a - b).norm() / b.norm()).item()
     agree = int((a.argmax(-1) == b.argmax(-1)).sum())
@@ -1423,7 +1542,7 @@ def phase_serve(card):
                                                    cfg.vocab_size)
     assert rel <= LOGITS_REL_TOL, rel
     del plain, engine, model
-    torch.cuda.empty_cache()
+    free_cuda()
 
     # tiny f32 model: the kernel engine's greedy tokens equal a
     # full-recompute greedy decode
@@ -1445,8 +1564,11 @@ def phase_serve(card):
             ids.append(nxt)
         ref.append(out)
     assert tiny._serving_engine._use_kernel
+    assert tiny._serving_engine.graphs()["decode"].replays > 0
     assert got == ref, (got, ref)
-    log("  tiny f32 llama: engine tokens == full-recompute greedy")
+    log("  tiny f32 llama: captured engine tokens == full-recompute greedy")
+    del tiny
+    free_cuda()
     return launches
 
 
@@ -1467,6 +1589,17 @@ def train_layers(total_memory: int, hidden: int, inter: int,
 TRAIN_DIMS = (4096, 11008, 32, 4096, 32000, 1)
 
 
+def train_data():
+    """bench_llama's data: ids then labels from RandomState(0)."""
+    _, _, _, seq, vocab, batch = TRAIN_DIMS
+    rng = np.random.RandomState(0)
+    ids = torch.from_numpy(rng.randint(0, vocab, (batch, seq))
+                           .astype(np.int64)).cuda()
+    labels = torch.from_numpy(rng.randint(0, vocab, (batch, seq))
+                              .astype(np.int64)).cuda()
+    return ids, labels
+
+
 def train_setup():
     """bench_llama's model, optimizer and data at Llama-7B width, the depth
     by train_layers; returns (layers, total memory, model, optimizer,
@@ -1483,12 +1616,7 @@ def train_setup():
     model = LlamaForCausalLM(cfg, seed=SEED)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
-    # bench_llama's data: ids then labels from RandomState(0)
-    rng = np.random.RandomState(0)
-    ids = torch.from_numpy(rng.randint(0, vocab, (batch, seq))
-                           .astype(np.int64)).cuda()
-    labels = torch.from_numpy(rng.randint(0, vocab, (batch, seq))
-                              .astype(np.int64)).cuda()
+    ids, labels = train_data()
 
     def step():
         loss = model.compute_loss(model(ids), labels)
@@ -1506,7 +1634,7 @@ def phase_train(card, peak_ops):
     n_params = model.num_params()
     log(f"[5/9] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
-        f"bf16, eager AdamW")
+        f"bf16, AdamW: eager, then TrainStepCapture")
     steps = 3
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1548,15 +1676,87 @@ def phase_train(card, peak_ops):
         if launches[n] != expect:
             raise AssertionError(f"{n} launched {launches[n]} times, "
                                  f"expected {expect}")
+    captured = train_captured(card, peak_ops, model, opt, step_s, losses)
     del model, opt, step
-    torch.cuda.empty_cache()
+    free_cuda()
+    return captured
+
+
+def lm_loss(model, ids, labels):
+    return model.compute_loss(model(ids), labels)
+
+
+def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses):
+    """The same model and optimizer through ``TrainStepCapture``: every
+    launch count set to 0 just before its warmup (forward and backward on a
+    zero batch, the update on copies, then the capture) and read after one
+    replay and three timed replays.  Losses finite and falling, each flash
+    kernel launched once a layer a replay, no recapture.  Returns the
+    launches of the replays (a replay's times the replays)."""
+    from paddle_tpu_torch.jit import TrainStepCapture
+    from paddle_tpu_torch.jit import compile_cache as cc
+    from paddle_tpu_torch.jit.api import replayed_launches
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    hidden, _, _, seq, vocab, batch = TRAIN_DIMS
+    layers = model.config.num_hidden_layers
+    ids, labels = train_data()
+    opt.clear_grad()
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    step = TrainStepCapture(model, opt, lm_loss)
+    step.warmup([ids, labels])
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    base = cc.retrace_count()
+    losses = [step(ids, labels)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        losses.append(step(ids, labels))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    host = dict(LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    recaptures = cc.retrace_count() - base
+    losses = [float(x) for x in losses]
+    (graph,) = step.graphs()
+    launches = replayed_launches([graph])
+    tokens_s = batch * seq / step_s
+    flops_tok = 6.0 * model.num_params() + 12.0 * layers * hidden * seq
+    log(f"  captured (TrainStepCapture, same model and AdamW): warmup and "
+        f"capture {capture_s:.2f} s; losses "
+        + ", ".join(f"{x:.4f}" for x in losses)
+        + f" (one replay first); recaptures after warmup {recaptures}")
+    log(f"  [{card}] captured step {step_s * 1e3:.1f} ms (eager "
+        f"{eager_step_s * 1e3:.1f} ms), {tokens_s:,.1f} tokens/s, MFU "
+        f"{tokens_s * flops_tok / peak_ops:.4f}, peak memory "
+        f"{peak / 1e9:.2f} GB")
+    log(f"  launches a replay {graph.launches} x {graph.replays} replays; "
+        f"wrapper calls in the run (warm step and capture): "
+        + ", ".join(f"{n} {host[n]}" for n in sorted(graph.launches)))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite captured loss: {losses}")
+    if not (losses[-1] < losses[0] < eager_losses[0]):
+        raise AssertionError(f"captured losses did not fall: {losses}")
+    if recaptures:
+        raise AssertionError(f"{recaptures} recaptures after warmup")
+    flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
+    if graph.launches != {n: layers for n in flash} or graph.replays != 4:
+        raise AssertionError(f"captured train step launches "
+                             f"{graph.launches} x {graph.replays}")
+    if not all(host[n] > 0 for n in flash):
+        raise AssertionError(f"a flash kernel was not launched: {host}")
     return launches
 
 
-def profile_train_step(step, card) -> None:
+def profile_train_step(step, card, label="profiled train step",
+                       graph=None) -> None:
     """Where a train step's time goes: one more step under torch.profiler
     (after the launch counts were read), device time by kernel and the
-    device's busy share of the step's wall time."""
+    device's busy share of the step's wall time; for a replay of ``graph``,
+    its counted kernels against the graph's record."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1568,7 +1768,7 @@ def profile_train_step(step, card) -> None:
     rows = [e for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
     device_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    log(f"  [{card}] profiled train step: {wall_ms:.1f} ms wall, device "
+    log(f"  [{card}] {label}: {wall_ms:.1f} ms wall, device "
         f"busy {device_ms:.1f} ms ({device_ms / wall_ms:.1%}), "
         f"{sum(e.count for e in rows)} kernel launches")
     ranked = sorted(rows, key=lambda e: -e.self_device_time_total)
@@ -1576,6 +1776,8 @@ def profile_train_step(step, card) -> None:
     for e in ranked[:12] + [e for e in ranked[12:] if "flash::" in e.key]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    if graph is not None:
+        check_profiled(rows, graph.launches, 1, label)
 
 
 def phase_packed(card):
@@ -1717,6 +1919,77 @@ def phase_train_parity():
         raise AssertionError(f"parameters differ by {param_rel:.3e}")
     if not losses["card"][-1] < losses["card"][0]:
         raise AssertionError(f"tiny model loss did not fall: {losses}")
+    train_parity_captured()
+
+
+def train_parity_captured():
+    """The tiny f32 Llama through ``TrainStepCapture`` on the card (a CUDA
+    graph), 5 steps with a LinearWarmup learning rate stepped between
+    calls and the global-norm clip, against the same steps eagerly on the
+    card and against the CPU's step (its eager body on the kernels' plain
+    versions), both within CAPTURE_RTOL."""
+    from paddle_tpu_torch.jit import TrainStepCapture
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_tiny_config)
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import LinearWarmup
+    cfg = llama_tiny_config()
+    models = {"captured": LlamaForCausalLM(cfg, seed=SEED)}
+    models["eager"] = LlamaForCausalLM(cfg, seed=SEED)
+    models["cpu"] = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
+    for name in ("eager", "cpu"):
+        models[name].load_state_dict(models["captured"].state_dict())
+    rng = np.random.RandomState(1)
+    ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+    labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
+    opts = {name: AdamW(learning_rate=LinearWarmup(
+        1e-3, warmup_steps=4, start_lr=1e-4, end_lr=1e-3),
+        parameters=m.parameters(), weight_decay=0.01,
+        grad_clip=ClipGradByGlobalNorm(1.0)) for name, m in models.items()}
+    steps = {name: TrainStepCapture(models[name], opts[name], lm_loss)
+             for name in ("captured", "cpu")}
+    losses = {name: [] for name in models}
+    lrs = []
+    for _ in range(5):
+        lrs.append(opts["captured"].get_lr())
+        for name, m in models.items():
+            dev = next(m.parameters()).device
+            if name in steps:
+                loss = steps[name](ids, labels)
+            else:
+                loss = lm_loss(m, ids.to(dev), labels.to(dev))
+                loss.backward()
+                opts[name].step()
+                opts[name].clear_grad()
+            losses[name].append(loss.item())
+            opts[name]._learning_rate.step()
+    (graph,) = steps["captured"].graphs()
+    params = {name: dict(m.named_parameters()) for name, m in models.items()}
+
+    def worst(other):
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(losses["captured"], losses[other]))
+        param_rel = max(((p.detach().cpu() - params[other][n].detach()
+                          .cpu()).norm() / params[other][n].detach().cpu()
+                         .norm()).item()
+                        for n, p in params["captured"].items())
+        return loss_rel, param_rel
+
+    eager_l, eager_p = worst("eager")
+    cpu_l, cpu_p = worst("cpu")
+    log(f"  captured tiny f32 step, 5 steps, learning rate "
+        f"{lrs}: losses {losses['captured']}; vs eager on the card: loss "
+        f"{eager_l:.3e}, parameters {eager_p:.3e}; vs the CPU: loss "
+        f"{cpu_l:.3e}, parameters {cpu_p:.3e} (tol {CAPTURE_RTOL} each); "
+        f"{graph.replays} replays")
+    if not (eager_l <= CAPTURE_RTOL and eager_p <= CAPTURE_RTOL):
+        raise AssertionError("captured step differs from the eager loop")
+    if not (cpu_l <= CAPTURE_RTOL and cpu_p <= CAPTURE_RTOL):
+        raise AssertionError("captured step differs from the CPU's")
+    if graph.replays != 5 or not losses["captured"][-1] < \
+            losses["captured"][0]:
+        raise AssertionError(f"captured tiny step: {losses['captured']}")
 
 
 def set_quant_kernels(model, on: bool) -> None:
@@ -1782,24 +2055,32 @@ def quant_serve_run(card, bits: int, kv_quant: str):
     log(f"  KV pool ({kv_quant if kv_quant != 'off' else 'bf16'}) "
         f"{engine.kv.pool_bytes() / 1e9:.2f} GB ({engine.kv.num_blocks} "
         f"pages of {engine.kv.block_size})")
-    engine.warmup()
-    launches, stats = serve_traffic(engine, cfg, card)
+    host, launches, per_replay, stats = serve_traffic(engine, cfg, card)
     steps = stats["prefill_steps"] + stats["decode_steps"]
     rpa = "rpa_decode_quant" if engine.kv.quantized else "rpa_decode"
-    expect = {f"qmm_i{bits}": steps * QMM_LAUNCHES_A_STEP,
+    qmm = f"qmm_i{bits}"
+    want = {"decode": {qmm: QMM_LAUNCHES_A_STEP,
+                       rpa: cfg.num_hidden_layers},
+            "prefill": {qmm: QMM_LAUNCHES_A_STEP}}
+    if per_replay != want:
+        raise AssertionError(f"launches a replay {per_replay}, expected "
+                             f"{want}")
+    expect = {qmm: steps * QMM_LAUNCHES_A_STEP,
               rpa: stats["decode_steps"] * cfg.num_hidden_layers}
-    log(f"  launches: " + ", ".join(
-        f"{n} {launches[n]}" for n in ("qmm_i8", "qmm_i4", "rpa_decode",
-                                       "rpa_decode_quant"))
+    log(f"  launches of the replays: " + ", ".join(
+        f"{n} {launches.get(n, 0)}" for n in ("qmm_i8", "qmm_i4",
+                                              "rpa_decode",
+                                              "rpa_decode_quant"))
         + f"; {stats['prefill_steps']} prefill + {stats['decode_steps']} "
-        f"decode steps x {QMM_LAUNCHES_A_STEP} quantized products, decode "
-        f"steps x {cfg.num_hidden_layers} layers")
+        f"decode replays x {QMM_LAUNCHES_A_STEP} quantized products, decode "
+        f"replays x {cfg.num_hidden_layers} layers (wrapper calls in the "
+        f"run, warmup and capture: {qmm} {host[qmm]}, {rpa} {host[rpa]})")
     for n in ("qmm_i8", "qmm_i4", "rpa_decode", "rpa_decode_quant"):
-        if launches[n] != expect.get(n, 0) or (n in expect and not
-                                               expect[n] > 0):
-            raise AssertionError(f"{n} launched {launches[n]} times, "
+        if launches.get(n, 0) != expect.get(n, 0) or (
+                n in expect and not (expect[n] > 0 and host[n] > 0)):
+            raise AssertionError(f"{n} launched {launches.get(n, 0)} times, "
                                  f"expected {expect.get(n, 0)}")
-    a = first_decode_logits(engine, cmp_prompts, 4)
+    a = first_decode_logits(engine, cmp_prompts, 4, eager_check=True)
     set_quant_kernels(model, False)
     try:
         b = first_decode_logits(plain, cmp_prompts, 4)
@@ -1819,7 +2100,7 @@ def quant_serve_run(card, bits: int, kv_quant: str):
     if not rel <= LOGITS_REL_TOL:
         raise AssertionError(f"int{bits} kernel vs plain logits {rel:.3e}")
     del plain, engine, model
-    torch.cuda.empty_cache()
+    free_cuda()
     return launches
 
 
@@ -1906,14 +2187,27 @@ def phase_profiles(card) -> None:
         log(f"  serve, {label}:")
         profile_prefill(engine, cfg.vocab_size, card)
         profile_decode(engine, prompts, card)
+        want = {"rpa_decode_quant" if kv == "int8" else "rpa_decode":
+                cfg.num_hidden_layers}
+        if bits:
+            want[f"qmm_i{bits}"] = QMM_LAUNCHES_A_STEP
+        if engine.graphs()["decode"].launches != want:
+            raise AssertionError(f"decode launches a replay "
+                                 f"{engine.graphs()['decode'].launches}")
         del engine, model
-        torch.cuda.empty_cache()
+        free_cuda()
+    from paddle_tpu_torch.jit import TrainStepCapture
     layers, _, model, opt, step = train_setup()
     step()                                   # warm-up
     log(f"  train, {layers} layers:")
-    profile_train_step(step, card)
-    del model, opt, step
-    torch.cuda.empty_cache()
+    profile_train_step(step, card, "profiled eager train step")
+    ids, labels = train_data()
+    captured = TrainStepCapture(model, opt, lm_loss)
+    captured(ids, labels)                    # capture, then a replay
+    profile_train_step(lambda: captured(ids, labels), card,
+                       "profiled train replay", captured.graphs()[0])
+    del model, opt, step, captured
+    free_cuda()
 
 
 def main() -> int:
@@ -1956,14 +2250,16 @@ def main() -> int:
     phase_train_parity()
     launches.update(phase_quant_serve(card))
     phase_profiles(card)
-    launched_in = {"rpa_decode": "serve (phase 4)",
-                   "flash_fwd": "train (phase 5)",
-                   "flash_dq": "train (phase 5)",
-                   "flash_dkv": "train (phase 5)",
-                   "flash_bwd_delta": "train (phase 5)",
-                   "qmm_i8": "quantized serve (phase 8)",
-                   "qmm_i4": "quantized serve (phase 8)",
-                   "rpa_decode_quant": "quantized serve (phase 8)"}
+    # on the captured paths: each graph's launches a replay (checked
+    # against the profiler in phase 9) times its replays
+    launched_in = {"rpa_decode": "captured serve (phase 4)",
+                   "flash_fwd": "captured train (phase 5)",
+                   "flash_dq": "captured train (phase 5)",
+                   "flash_dkv": "captured train (phase 5)",
+                   "flash_bwd_delta": "captured train (phase 5)",
+                   "qmm_i8": "captured quantized serve (phase 8)",
+                   "qmm_i4": "captured quantized serve (phase 8)",
+                   "rpa_decode_quant": "captured quantized serve (phase 8)"}
     for row in rows:
         if row["name"] in launches:
             row["launches"] = launches[row["name"]]

@@ -2,7 +2,7 @@
 
 The package mirrors ``paddle_tpu``'s module paths, so every file here has
 exactly one counterpart there; ``paddle_tpu`` stays the reference the tests
-hold this package to.  It covers Llama serving and eager Llama training:
+hold this package to.  It covers Llama serving and Llama training (eager or captured):
 
   flags.py           — the serving flags (same names and defaults)
   core/place.py      — device resolution (CUDA unless the caller asks for
@@ -15,11 +15,14 @@ hold this package to.  It covers Llama serving and eager Llama training:
   models/llama.py    — Llama with the paged-KV serving forward and the
                        full-sequence training forward, compute_loss
   optimizer/         — SGD, Adam, AdamW (in-place updates), LR schedulers
+  jit/               — TrainStepCapture (one CUDA graph a batch signature)
+                       and the recapture counters
   regularizer.py     — L1Decay, L2Decay
   ops/cuda/          — hand-written Hopper kernels (ctypes-bound, built with
                        nvcc at first use) and their plain PyTorch versions
   serving/           — paged KV allocator + prefix cache, continuous-batching
-                       scheduler, ServingEngine
+                       scheduler, ServingEngine (its two step signatures
+                       captured as CUDA graphs on the card)
 
 Importing the package needs neither a GPU nor nvcc: kernels are compiled and
 loaded at their first CUDA launch.

@@ -1,5 +1,5 @@
-"""Runtime flag registry: the serving and quantization flags the port
-reads.
+"""Runtime flag registry: the serving, quantization and recapture flags
+the port reads.
 
 Same names, defaults and ``FLAGS_<name>`` environment seeding as
 ``paddle_tpu/flags.py``; only the flags the port reads are defined.
@@ -123,3 +123,8 @@ define_flag("weight_quant_kernel", "auto",
             "one path ('on' on the CPU routes through the kernel wrapper, "
             "which computes its plain version for CPU tensors; 'off' on the "
             "card is the caller's explicit choice of the plain path).")
+define_flag("retrace_warn_threshold", 8,
+            "Warn once a captured step (a train step, a serving step "
+            "signature) has been captured this many times — the recapture "
+            "tripwire (jit/compile_cache.py note_trace). 0 disables the "
+            "warning.")

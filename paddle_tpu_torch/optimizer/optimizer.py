@@ -84,30 +84,41 @@ class Optimizer:
         return [p for p in self._parameter_list
                 if p.requires_grad and p.grad is not None]
 
-    def _update(self, lr: float, params, grads, states, step: int) -> None:
-        """Update ``params`` and ``states`` in place.  Override."""
+    def _update(self, lr, params, grads, states, step) -> None:
+        """Update ``params`` and ``states`` in place; ``lr`` and ``step`` as
+        :meth:`_apply` passes them.  Override."""
         raise NotImplementedError
 
     def _decoupled_wd(self) -> bool:
         return False
 
-    @torch.no_grad()
-    def step(self) -> None:
-        params = self._params_with_grad()
-        if not params:
-            self._global_step += 1
-            return
-        grads = [p.grad for p in params]
+    def _prepare_grads(self, params, grads):
+        """The clip, then L2/L1 regularization folded into the grads."""
         if self._grad_clip is not None:
             grads = [g for _, g in self._grad_clip(list(zip(params, grads)))]
-        # L2/L1 regularization folded into the grads
         if self._weight_decay is not None and not self._decoupled_wd():
             grads = [self._weight_decay.apply_tensor(p, g)
                      for p, g in zip(params, grads)]
+        return grads
+
+    def _apply(self, params, grads, lr, step) -> None:
+        """Clip, regularize and update ``params`` in place: the body of
+        :meth:`step` and of a captured train step.  ``lr`` and ``step`` are
+        Python numbers here, and 0-dim float32 tensors on the parameters'
+        device in a captured step, where a Python number would be captured
+        as a constant and every replay would reuse it."""
+        grads = self._prepare_grads(params, grads)
         states = [[self._get_state(n, p) for p in params]
                   for n in self._STATE_NAMES]
+        self._update(lr, params, grads, states, step)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        params = self._params_with_grad()
         self._global_step += 1
-        self._update(self.get_lr(), params, grads, states, self._global_step)
+        if params:
+            self._apply(params, [p.grad for p in params], self.get_lr(),
+                        self._global_step)
 
     def clear_grad(self, set_to_zero: bool = False) -> None:
         """Drop every gradient.  ``set_to_zero`` is accepted for the API and,
@@ -138,13 +149,16 @@ class Adam(Optimizer):
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    def _adam(self, lr, p, g, m1, m2, step) -> None:
+    def _corrections(self, step):
+        """The bias corrections 1 - b1^step and 1 - b2^step, formed once
+        for all parameters (0-dim tensors when ``step`` is one)."""
+        return 1.0 - self._beta1 ** step, 1.0 - self._beta2 ** step
+
+    def _adam(self, lr, p, g, m1, m2, bc1, bc2) -> None:
         """m1 <- b1 m1 + (1 - b1) g;  m2 <- b2 m2 + (1 - b2) g^2;
         p <- p - lr (m1 / bc1) / (sqrt(m2 / bc2) + eps), in place, with g
         in the moments' dtype and the update cast to p's."""
         b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        bc1 = 1.0 - b1 ** step
-        bc2 = 1.0 - b2 ** step
         gf = g.to(m1.dtype)
         m1.mul_(b1).add_(gf, alpha=1 - b1)
         m2.mul_(b2).add_((1 - b2) * gf * gf)
@@ -153,8 +167,9 @@ class Adam(Optimizer):
 
     def _update(self, lr, params, grads, states, step):
         m1s, m2s = states
+        bc1, bc2 = self._corrections(step)
         for p, g, m1, m2 in zip(params, grads, m1s, m2s):
-            self._adam(lr, p, g, m1, m2, step)
+            self._adam(lr, p, g, m1, m2, bc1, bc2)
 
 
 class AdamW(Adam):
@@ -184,9 +199,11 @@ class AdamW(Adam):
     def _update(self, lr, params, grads, states, step):
         m1s, m2s = states
         fun = self._apply_decay_param_fun
+        bc1, bc2 = self._corrections(step)
+        keep = 1.0 - lr * self._coeff
         for p, g, m1, m2 in zip(params, grads, m1s, m2s):
             decay = fun is None or bool(fun(self._param_names.get(id(p),
                                                                   "")))
             if decay and self._coeff != 0.0:
-                p.mul_(1.0 - lr * self._coeff)
-            self._adam(lr, p, g, m1, m2, step)
+                p.mul_(keep)
+            self._adam(lr, p, g, m1, m2, bc1, bc2)

@@ -208,6 +208,56 @@ class PagedKVCache:
             pools = pools + self.k_scales + self.v_scales
         return sum(t.numel() * t.element_size() for t in pools)
 
+    def used_tokens(self) -> int:
+        """Tokens occupying allocated pages, each physical page counted
+        once (a block shared by N sequences counts its occupancy once)."""
+        occ: Dict[int, int] = {}
+        bs = self.block_size
+        for rid, table in list(self._tables.items()):
+            length = self._lens.get(rid, 0)
+            for b, page in enumerate(list(table)):
+                t = min(bs, max(0, length - b * bs))
+                if t > occ.get(page, 0):
+                    occ[page] = t
+        return sum(occ.values())
+
+    def utilization(self) -> float:
+        """Allocated fraction of the usable pool (page 0 excluded); cached
+        but unreferenced (LRU) pages count as free."""
+        return self.blocks_in_use / (self.num_blocks - 1)
+
+    def fragmentation(self) -> float:
+        """Internal fragmentation: the fraction of allocated page capacity
+        no token occupies (shared pages count once)."""
+        cap = self.blocks_in_use * self.block_size
+        if cap == 0:
+            return 0.0
+        return 1.0 - self.used_tokens() / cap
+
+    def drop_cache(self) -> None:
+        """Forget every cached identity (LRU pages to the freelist, all hash
+        registrations cleared, pending copies dropped): the pools' content
+        is about to become meaningless (``reset_pools``)."""
+        for page in list(self._lru):
+            self._free.append(page)
+        self._lru.clear()
+        self._hash_to_page.clear()
+        self._page_meta.clear()
+        self._children.clear()
+        self._pending_copies.clear()
+
+    def reset_pools(self) -> None:
+        """Zero every pool IN PLACE after a failed step, and drop the
+        prefix cache with the content.  In place because the engine's
+        captured steps hold the pools' addresses: new pools would leave
+        every graph writing into freed memory.  Callers first fold the
+        active sequences back to recompute."""
+        self.drop_cache()
+        with torch.no_grad():
+            for layer in self.layer_pools():
+                for t in layer:
+                    t.zero_()
+
     def layer_pools(self) -> List[Tuple[torch.Tensor, ...]]:
         """Each layer's pools: (k, v), or (k, v, k_scales, v_scales) for an
         int8 pool — the order ``PagedCacheView`` takes them in."""

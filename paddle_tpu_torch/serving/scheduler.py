@@ -60,6 +60,8 @@ class Request:
         self.submitted_at: Optional[float] = None
         self.admitted_at: Optional[float] = None
         self.first_token_at: Optional[float] = None
+        # why the last preemption happened (_evict_one's reason)
+        self.preempt_reason: Optional[str] = None
 
     @property
     def prompt_len(self) -> int:
@@ -100,6 +102,9 @@ class ContinuousBatchingScheduler:
         # after a prefill chunk a runnable decode batch goes first, so
         # decode never waits more than one chunk behind a long prefill
         self._prefer_decode = False
+        # draining (ServingEngine.drain): admit nothing more, run what is
+        # already admitted to completion
+        self.draining = False
 
     # -- intake -----------------------------------------------------------
     def submit(self, req: Request) -> None:
@@ -144,6 +149,8 @@ class ContinuousBatchingScheduler:
         return best
 
     def _try_admit(self, now: float) -> None:
+        if self.draining:
+            return
         while len(self.active) < self.max_batch:
             req = self._next_admit(now)
             if req is None:
@@ -166,10 +173,12 @@ class ContinuousBatchingScheduler:
             self.active.append(req)
 
     # -- eviction ---------------------------------------------------------
-    def _evict_one(self, protect: Optional[Request] = None) -> bool:
+    def _evict_one(self, protect: Optional[Request] = None,
+                   reason: str = "kv_pool_exhausted") -> bool:
         """Preempt the youngest running request (≠ ``protect``; batch-class
         before interactive): free its pages and re-queue it at the front
-        with generated tokens folded into the prompt."""
+        with generated tokens folded into the prompt.  ``reason`` (why it
+        was preempted) lands on the request as ``preempt_reason``."""
         victims = [r for r in self.active
                    if r is not protect and r.state in (RUNNING, PREFILLING)]
         if not victims:
@@ -186,6 +195,7 @@ class ContinuousBatchingScheduler:
         victim.prefill_pos = 0
         victim.state = WAITING
         victim.preemptions += 1
+        victim.preempt_reason = reason
         self.waiting.appendleft(victim)
         return True
 

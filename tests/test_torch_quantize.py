@@ -574,11 +574,12 @@ def test_copy_on_write_moves_scales_with_codes():
         for t in layer[2:]:
             t[5] = torch.from_numpy(rng.random(t[5].shape, np.float32))
     kv._pending_copies.append((5, 9))
-    z = np.zeros
-    p = kv.max_pages_per_seq
-    eng._run_step(z((2, 1), np.int64), z((2, 1), np.int64),
-                  z((2, p), np.int32), z((2,), np.int32), z((2,), np.int64),
-                  z((2,), np.int64), z((2,), np.int64), kernel=True)
+    # an all-padding decode step (every write into page 0) that carries
+    # the copy in its fixed-width copy list
+    step = eng._decode
+    eng._build(step)
+    step.fill()
+    eng._run(step)
     for layer in pools:
         for t in layer:
             assert torch.equal(t[9], t[5])
