@@ -16,7 +16,9 @@ and prints no result line):
    mma.sync (HMMA), wgmma and TMA-load instructions of the quantized
    matmul's;
 3. kernel — each kernel against its plain PyTorch version on the same
-   inputs at the main paths' shapes, plus edge cases (head_dim up to 256);
+   inputs at the main paths' shapes, plus edge cases (head_dim up to 256;
+   the fused optimizer update over SGD, Adam and AdamW, its dtype groups,
+   decay flags and odd sizes, timed at the train phase's 210 parameters);
    kernel, plain and library times with CUDA events (L2 flushed between
    launches) and the card's bound for the same work (the ragged flash
    forward, which no path calls, at the serving chunk shape; the flash
@@ -37,10 +39,12 @@ and prints no result line):
 5. train  — Llama-7B width (hidden 4096, intermediate 11008, 32 heads,
    seq 4096, bf16; the layer count by bench.py's memory rule) trained
    with AdamW, bench_llama's optimizer and data: eagerly, one warm-up and
-   three timed steps on one batch with launch counts read around them;
-   then the same model and optimizer through ``TrainStepCapture`` (warmup,
+   three timed steps on one batch with launch counts read around them
+   (the update's device time by CUDA events around ``opt.step()``); then
+   the same model and optimizer through ``TrainStepCapture`` (warmup,
    capture, one replay and three timed replays, each flash kernel once a
-   layer a replay, 0 recaptures); losses finite and falling;
+   layer and the fused update once a replay, 0 recaptures); losses finite
+   and falling;
 6. packed attention — ``flash_attn_unpadded`` forward and backward at
    Llama-7B's attention width (32 heads x 128) for each of 32 layers on
    seeded q/k/v, T = 4096 tokens in six documents, causal, bf16: launch
@@ -60,10 +64,15 @@ and prints no result line):
    a tiny f32 Llama with int8 weights and int8 KV on the card vs the CPU;
 9. profiles — torch.profiler breakdowns of 256-token prefill chunks and
    batch-8 decode steps (replays; bf16; int8 weights and KV; int4
-   weights), of one eager train step and of one train replay, each
-   replay's kernels counted by name against its graph's record, after
-   every timed phase, since a profiler run slows the host side of later
-   work.
+   weights; the decode replay's copy-on-write list's share), of one
+   eager train step and of one train replay (the update's kernels summed
+   apart), each replay's kernels counted by name against its graph's
+   record, after every timed phase, since a profiler run slows the host
+   side of later work;
+10. ops — every op of the port's registry (``paddle_tpu_torch/ops/op.py``)
+   on CUDA tensors against the same call on CPU tensors at small shapes
+   (f32 within 1e-5, integer and bool exact; random ops by shape, dtype
+   and determinism of their generator).
 
 The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 ``launches`` counted on the path named by its ``launches_in``); the last is
@@ -145,6 +154,13 @@ QUANT_PARITY_RTOL = 1e-4
 # eager card-vs-CPU parity above reads about 3e-6).  Losses and parameters
 # within 1e-5 relative
 CAPTURE_RTOL = 1e-5
+# Fused optimizer update vs its plain version: the same f32 operations in
+# the same order (the kernel's powf may differ from torch's pow in its last
+# bit), each output rounded once: float32 outputs within 1e-6 relative,
+# 16-bit outputs within one ulp of the plain version's
+FU_F32_RTOL = 1e-6
+# Ops phase: a registry op on CUDA tensors vs the same call on CPU tensors
+OPS_RTOL = OPS_ATOL = 1e-5
 # The profiler's kernel names of each counted kernel (the counts name the
 # wrapper's entry point; the decode kernel's two entry points and the
 # quantized matmul's two widths share one template each)
@@ -154,7 +170,8 @@ KERNEL_NAMES = {
     "flash_bwd_delta": r"flash_bwd_delta_kernel",
     "rpa_decode": r"rpa_decode_kernel", "rpa_decode_quant": r"rpa_decode_kernel",
     "qmm_i8": r"qmm_(tc|wg|skinny|tiled)_kernel",
-    "qmm_i4": r"qmm_(tc|wg|skinny|tiled)_kernel"}
+    "qmm_i4": r"qmm_(tc|wg|skinny|tiled)_kernel",
+    "fused_update": r"fused_update_kernel"}
 
 
 def log(msg: str = "") -> None:
@@ -1254,6 +1271,147 @@ def phase_decode_shapes(card, bw) -> None:
                 f"{err.max().item():.3e}")
 
 
+# -- phase 3 (cont.): the fused optimizer update -----------------------------------
+
+def train_param_shapes(layers: int):
+    """bench_llama's parameters at Llama-7B width, ``layers`` deep, in the
+    port's model order: the embedding; each layer's input norm, q/k/v/o,
+    post-attention norm, gate/up and down (Paddle's (in, out) layout); the
+    final norm; the lm_head (210 tensors at 23 layers)."""
+    hidden, inter, _, _, vocab, _ = TRAIN_DIMS
+    layer = ([(hidden,)] + [(hidden, hidden)] * 4 + [(hidden,)]
+             + [(hidden, inter)] * 2 + [(inter, hidden)])
+    return [(vocab, hidden)] + layer * layers + [(hidden,), (hidden, vocab)]
+
+
+def fu_check(got, want, what) -> float:
+    """One tensor of the fused update against the plain version's: f32
+    within FU_F32_RTOL relative, 16-bit within one ulp; returns the largest
+    absolute difference."""
+    mant = {torch.float32: None, torch.float16: 10,
+            torch.bfloat16: 7}[got.dtype]
+    g, w = got.float(), want.float()
+    diff = (g - w).abs()
+    if mant is None:
+        bound = FU_F32_RTOL * w.abs() + 1e-30
+    else:
+        bound = torch.exp2(torch.floor(torch.log2(
+            w.abs().clamp_min(2.0 ** -24))) - mant)
+    bad = int((diff > bound).sum())
+    if bad:
+        raise AssertionError(f"fused_update {what}: {bad} elements past "
+                             f"the bound (max abs err "
+                             f"{diff.max().item():.3e})")
+    return diff.max().item()
+
+
+def fu_tensors(shapes, p_dtype, m_dtype, seed, copies=2):
+    """``copies`` identical sets of (params, grads, m1s, m2s) on the card:
+    grads ~ 0.1 N(0, 1), m1 ~ 0.01 N(0, 1), m2 ~ U(0, 1e-3); drawn in f32
+    a shape at a time (the train shapes' f32 draws would not fit at
+    once)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = [([], [], [], []) for _ in range(copies)]
+    for shape in shapes:
+        vals = (torch.randn(shape, generator=g, device="cuda"),
+                0.1 * torch.randn(shape, generator=g, device="cuda"),
+                0.01 * torch.randn(shape, generator=g, device="cuda"),
+                1e-3 * torch.rand(shape, generator=g, device="cuda"))
+        for c in sets:
+            for lst, v, dt in zip(c, vals, (p_dtype, p_dtype, m_dtype,
+                                            m_dtype)):
+                lst.append(v.to(dt, copy=True))
+        del vals
+    return sets
+
+
+def phase_fused_update(card, bw):
+    """The fused update (SGD, Adam, AdamW) against its plain version over
+    the dtype groups (f32; bf16; bf16 with f32 moments), mixed decay flags
+    and sizes 1, 7, 4095 and 4096 x 11008, two steps each; then its time at
+    the train phase's 210 parameters (bf16, AdamW), beside the plain
+    version's (a tensor at a time) and torch's fused AdamW
+    (``torch._fused_adamw_``)."""
+    from paddle_tpu_torch.ops.cuda import fused_update as fu
+    from paddle_tpu_torch.ops.cuda.attention import LAUNCH_COUNTS
+    bf16, f32 = torch.bfloat16, torch.float32
+    sizes = [(1,), (7,), (4095,), (4096, 11008)]
+    decay = [True, False, True, False]
+    errs = []
+    for kind, name in ((fu.SGD, "SGD"), (fu.ADAM, "Adam"),
+                       (fu.ADAM, "AdamW")):
+        for pdt, mdt in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            if kind == fu.SGD and mdt != pdt:
+                continue
+            a, b = fu_tensors(sizes, pdt, mdt, SEED + 90)
+            flags = decay if name == "AdamW" else [False] * 4
+            kw = dict(coeff=0.1 if name == "AdamW" else 0.0)
+            before = LAUNCH_COUNTS["fused_update"]
+            for step in (1, 2):
+                lr = torch.tensor(1e-2 * step, device="cuda")
+                st = torch.tensor(float(step), device="cuda")
+                fu.fused_update(kind, *a, flags, lr, st, **kw)
+                fu.fused_update_ref(kind, *b, flags, lr, st, **kw)
+            if LAUNCH_COUNTS["fused_update"] - before != 2:
+                raise AssertionError("fused_update: not one launch a call")
+            torch.cuda.synchronize()
+            err = 0.0
+            for j, what in ((0, "p"), (2, "m1"), (3, "m2")):
+                if kind == fu.SGD and j:
+                    continue
+                for i in range(len(sizes)):
+                    err = max(err, fu_check(a[j][i], b[j][i],
+                                            f"{name} {what}[{i}]"))
+            errs.append(err)
+            log(f"  fused_update {name}, p {pdt} / moments {mdt}, sizes "
+                f"{sizes}, decay {flags if name == 'AdamW' else 'off'}: "
+                f"agrees with the plain version (max abs err {err:.3e})")
+            del a, b
+    torch.cuda.empty_cache()
+    layers = train_layers(torch.cuda.get_device_properties(0).total_memory,
+                          *TRAIN_DIMS[:2], TRAIN_DIMS[4])
+    shapes = train_param_shapes(layers)
+    ((ps, gs, m1s, m2s),) = fu_tensors(shapes, bf16, bf16, SEED + 91,
+                                       copies=1)
+    n = sum(p.numel() for p in ps)
+    lr = torch.tensor(1e-6, device="cuda")
+    st = torch.tensor(3.0, device="cuda")
+    flags = [True] * len(ps)
+    cache = {}
+    ms = time_ms(lambda: fu.fused_update(fu.ADAM, ps, gs, m1s, m2s, flags,
+                                         lr, st, coeff=0.01, cache=cache),
+                 iters=10, warmup=2)
+    plain = time_ms(lambda: fu.fused_update_ref(fu.ADAM, ps, gs, m1s, m2s,
+                                                flags, lr, st, coeff=0.01),
+                    iters=3, warmup=1)
+    lib = None
+    steps = [torch.tensor(3.0, device="cuda") for _ in ps]
+    try:
+        lib = time_ms(lambda: torch._fused_adamw_(
+            ps, gs, m1s, m2s, [], steps, lr=1e-6, beta1=0.9, beta2=0.999,
+            weight_decay=0.01, eps=1e-8, amsgrad=False, maximize=False),
+            iters=10, warmup=2)
+    except (RuntimeError, AttributeError, TypeError) as e:
+        log(f"  torch._fused_adamw_ not timed: {e}")
+    # read p, g, m1, m2 once and write p, m1, m2 once, 2 bytes each
+    bound = n * 14 / bw * 1e3
+    log(f"  [{card}] fused_update at the train phase's {len(ps)} parameters "
+        f"({layers} layers, {n / 1e9:.3f} B, bf16, AdamW): kernel "
+        f"{ms:.3f} ms ({bound / ms:.1%} of the bound), plain (a tensor at a "
+        f"time) {plain:.3f} ms, library (torch._fused_adamw_) "
+        f"{'not timed' if lib is None else f'{lib:.3f} ms'}, bound "
+        f"{bound:.3f} ms (bytes)")
+    del ps, gs, m1s, m2s, steps, cache
+    torch.cuda.empty_cache()
+    return {"name": "fused_update", "route": "cuda",
+            "source": "paddle_tpu_torch/ops/cuda/csrc/fused_update.cu",
+            "replaces": "paddle_tpu/optimizer/optimizer.py:330 (the "
+                        "XLA-fused AdamW update; no Pallas kernel)",
+            "launches": None, "max_abs_err": max(errs), "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+            "library_ms": lib}
+
+
 # -- phase 4: serve ----------------------------------------------------------
 
 def serve_prompts(seed: int, vocab: int):
@@ -1370,6 +1528,7 @@ def profile_steps(engine, kind: str, steps: int, card, label: str,
         log(f"    {e.self_device_time_total / 1e3 / steps:9.3f} ms/step "
             f"{e.count / steps:6.0f}x  {e.key[:90]}")
     check_profiled(rows, engine.graphs()[kind].launches, steps, label)
+    return device_ms
 
 
 def profile_decode(engine, prompts, card, steps: int = 6) -> None:
@@ -1378,9 +1537,44 @@ def profile_decode(engine, prompts, card, steps: int = 6) -> None:
     reqs = [engine.submit(p[:64], 4 * steps) for p in prompts[:8]]
     while any(r.state != RUNNING for r in reqs):
         engine.step()
-    profile_steps(engine, "decode", steps, card, "decode step at batch 8")
+    replay_ms = profile_steps(engine, "decode", steps, card,
+                              "decode step at batch 8")
     for r in reqs:
         engine.cancel(r.rid)
+    if engine._with_copies:
+        profile_copy_list(engine, card, replay_ms)
+
+
+def profile_copy_list(engine, card, replay_ms: float, steps: int = 6):
+    """The decode replay's copy-on-write list (a gather and a scatter a
+    pool a layer, ``serving/engine.py:224-228``): the same kernels, over
+    the engine's pools and a list of the same width that copies page 0
+    (the padding sink) onto itself, run eagerly under the profiler;
+    their device time a step against the decode replay's."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving.attention import paged_kv_copy
+    pad = torch.zeros(engine._max_copies, dtype=torch.int64, device="cuda")
+    pools = engine.kv.layer_pools()
+
+    def body():
+        for layer in pools:
+            for a, b in zip(layer[0::2], layer[1::2]):
+                paged_kv_copy(a, b, pad, pad)
+    body()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            body()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    cow_ms = sum(e.self_device_time_total for e in rows) / 1e3 / steps
+    kernels = sum(e.count for e in rows) / steps
+    log(f"  [{card}] copy-on-write list ({engine._max_copies} entries, "
+        f"{len(pools)} layers): {cow_ms:.3f} ms device time a step in "
+        f"{kernels:.0f} kernels, {cow_ms / replay_ms:.1%} of the decode "
+        f"replay's {replay_ms:.3f} ms")
 
 
 def profile_prefill(engine, vocab: int, card, steps: int = 3) -> None:
@@ -1498,7 +1692,7 @@ def phase_serve(card):
                                                llama_7b_config,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/9] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/10] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -1617,13 +1811,20 @@ def train_setup():
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
                 weight_decay=0.01)
     ids, labels = train_data()
+    update_events = []
 
     def step():
         loss = model.compute_loss(model(ids), labels)
         loss.backward()
+        # the update's device span, CUDA events around it
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         opt.step()
+        ev[1].record()
+        update_events.append(ev)
         opt.clear_grad()
         return loss.detach()
+    step.update_events = update_events
     return layers, total, model, opt, step
 
 
@@ -1632,7 +1833,7 @@ def phase_train(card, peak_ops):
     hidden, _, _, seq, _, batch = TRAIN_DIMS
     layers, total, model, opt, step = train_setup()
     n_params = model.num_params()
-    log(f"[5/9] train Llama-7B width, {layers} of 32 layers (bench.py's "
+    log(f"[5/10] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
         f"bf16, AdamW: eager, then TrainStepCapture")
     steps = 3
@@ -1651,6 +1852,8 @@ def phase_train(card, peak_ops):
     launches = dict(LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
+    update_ms = float(np.mean([a.elapsed_time(b)
+                               for a, b in step.update_events[-steps:]]))
     tokens_s = batch * seq / step_s
     # bench_llama's model FLOPs: 6N a token for the parameters + 12 L h s
     # for the attention products
@@ -1666,7 +1869,10 @@ def phase_train(card, peak_ops):
     flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
     log(f"  launches over the {steps + 1} steps: " + ", ".join(
         f"{n} {launches[n]}" for n in flash)
-        + f" (layers x steps = {expect})")
+        + f" (layers x steps = {expect}); fused_update "
+        f"{launches['fused_update']} (one a step: every parameter bf16)")
+    log(f"  [{card}] eager update (opt.step(), CUDA events): "
+        f"{update_ms:.3f} ms a step")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"non-finite loss: {losses}")
     if not losses[-1] < losses[0]:
@@ -1676,6 +1882,10 @@ def phase_train(card, peak_ops):
         if launches[n] != expect:
             raise AssertionError(f"{n} launched {launches[n]} times, "
                                  f"expected {expect}")
+    if launches["fused_update"] != steps + 1:
+        raise AssertionError(f"fused_update launched "
+                             f"{launches['fused_update']} times, expected "
+                             f"{steps + 1}")
     captured = train_captured(card, peak_ops, model, opt, step_s, losses)
     del model, opt, step
     free_cuda()
@@ -1743,12 +1953,19 @@ def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses):
     if recaptures:
         raise AssertionError(f"{recaptures} recaptures after warmup")
     flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
-    if graph.launches != {n: layers for n in flash} or graph.replays != 4:
+    # one fused update a replay: every parameter is bf16, one dtype group
+    want = {**{n: layers for n in flash}, "fused_update": 1}
+    if graph.launches != want or graph.replays != 4:
         raise AssertionError(f"captured train step launches "
                              f"{graph.launches} x {graph.replays}")
-    if not all(host[n] > 0 for n in flash):
-        raise AssertionError(f"a flash kernel was not launched: {host}")
+    if not all(host[n] > 0 for n in want):
+        raise AssertionError(f"a kernel was not launched: {host}")
+    log(f"  captured update: fused_update {graph.launches['fused_update']} "
+        f"a replay (its device time: phase 9's profiled replay)")
     return launches
+
+
+UPDATE_KERNEL = re.compile(r"fused_update\w*")
 
 
 def profile_train_step(step, card, label="profiled train step",
@@ -1773,9 +1990,24 @@ def profile_train_step(step, card, label="profiled train step",
         f"{sum(e.count for e in rows)} kernel launches")
     ranked = sorted(rows, key=lambda e: -e.self_device_time_total)
     # the top twelve, then the port's own kernels below them
-    for e in ranked[:12] + [e for e in ranked[12:] if "flash::" in e.key]:
+    for e in ranked[:12] + [e for e in ranked[12:] if "flash::" in e.key
+                            or "fused_update" in e.key]:
         log(f"    {e.self_device_time_total / 1e3:9.3f} ms "
             f"{e.count:6d}x  {e.key[:90]}")
+    # the update's kernels (the fused update and the writes of the grads'
+    # addresses into its table), and PyTorch's broadcast elementwise
+    # kernel, which the unfused update's products with 0-dim device
+    # tensors took
+    upd = [e for e in rows if "fused_update" in e.key]
+    bcast = [e for e in rows if "elementwise_kernel<128, 4>" in e.key]
+    log(f"    {label}: update kernels "
+        f"{sum(e.self_device_time_total for e in upd) / 1e3:.3f} ms in "
+        f"{sum(e.count for e in upd)} launches ("
+        + ", ".join(f"{UPDATE_KERNEL.search(e.key).group(0)} {e.count}x "
+                    f"{e.self_device_time_total / 1e3:.3f} ms" for e in upd)
+        + f"); elementwise_kernel<128, 4>: "
+        f"{sum(e.count for e in bcast)} launches, "
+        f"{sum(e.self_device_time_total for e in bcast) / 1e3:.3f} ms")
     if graph is not None:
         check_profiled(rows, graph.launches, 1, label)
 
@@ -1793,7 +2025,7 @@ def phase_packed(card):
     layers, bf16 = 32, torch.bfloat16
     cu = cu_of(PACKED_DOCS)
     t, longest, scale = int(cu[-1]), max(PACKED_DOCS), 1.0 / math.sqrt(d)
-    log(f"[6/9] packed attention: flash_attn_unpadded forward and backward "
+    log(f"[6/10] packed attention: flash_attn_unpadded forward and backward "
         f"at Llama-7B attention width ({heads} heads x {d}), {layers} "
         f"layers, T={t} in documents {list(PACKED_DOCS)}, bf16, causal")
     inputs = []
@@ -1883,7 +2115,7 @@ def phase_train_parity():
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.optimizer import AdamW
-    log("[7/9] train parity: tiny f32 Llama, card vs CPU")
+    log("[7/10] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
     on_card = LlamaForCausalLM(cfg, seed=SEED)
     on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
@@ -2110,7 +2342,7 @@ def phase_quant_serve(card):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[8/9] quantized serve: Llama-7B (full width and depth), (a) int8 "
+    log("[8/10] quantized serve: Llama-7B (full width and depth), (a) int8 "
         "weights + int8 KV")
     launches = quant_serve_run(card, 8, "int8")
     log("  (b) int4 weights + bf16 KV")
@@ -2169,7 +2401,7 @@ def phase_profiles(card) -> None:
                                                llama_7b_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[9/9] where the time goes (torch.profiler, after the timed phases)")
+    log("[9/10] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
     prompts = serve_prompts(SEED, cfg.vocab_size)
     for bits, kv, label in ((None, "off", "bf16"),
@@ -2210,6 +2442,273 @@ def phase_profiles(card) -> None:
     free_cuda()
 
 
+# -- phase 10: ops ---------------------------------------------------------------
+
+def op_cases():
+    """{op: (args, kwargs)} for every non-random op of the port's registry:
+    small numpy inputs from a seed, each op's static attributes as keywords
+    (the registry's calling convention; domains kept clear of kinks)."""
+    from paddle_tpu_torch.tensor._helpers import encode_index
+    r = np.random.RandomState(SEED + 7)
+
+    def f(*s):
+        return r.randn(*s).astype(np.float32)
+
+    def pos(*s):
+        return (r.rand(*s) + 0.5).astype(np.float32)
+
+    def unit(*s):
+        return (r.rand(*s) * 1.6 - 0.8).astype(np.float32)
+
+    def ints(*s, lo=1, hi=40):
+        return r.randint(lo, hi, s).astype(np.int32)
+
+    def boolean(*s):
+        return r.rand(*s) > 0.5
+
+    def spd(n=3):
+        a = r.randn(n, n).astype(np.float32) * 0.3
+        return (a @ a.T + 2 * np.eye(n)).astype(np.float32)
+
+    def distinct(*s):
+        return r.permutation(int(np.prod(s))).reshape(s).astype(np.float32)
+
+    c = {}
+    for n in ("abs", "asinh", "atan", "ceil", "conj", "cos", "cosh",
+              "deg2rad", "erf", "exp", "expm1", "floor", "neg", "rad2deg",
+              "round", "sigmoid", "sign", "sin", "sinh", "square", "tanh",
+              "trunc", "assign", "angle", "real_op", "imag_op"):
+        c[n] = ([f(2, 3)], {})
+    for n in ("digamma", "lgamma", "log", "log10", "log1p", "log2",
+              "reciprocal", "rsqrt", "sqrt"):
+        c[n] = ([pos(2, 3)], {})
+    c["acosh"] = ([pos(2, 3) + 1], {})
+    for n in ("acos", "asin", "atanh", "erfinv"):
+        c[n] = ([unit(2, 3)], {})
+    c["tan"] = ([unit(2, 3) * 0.6], {})
+    c["logit"] = ([r.rand(2, 3).astype(np.float32) * 0.6 + 0.2],
+                  dict(eps=1e-6))
+    c["stanh"] = ([f(2, 3)], dict(scale_a=0.67, scale_b=1.7159))
+    c["softplus_math"] = ([f(2, 3)], dict(beta=1.0, threshold=20.0))
+    c["nan_to_num"] = ([np.array([1.0, np.nan, np.inf, -np.inf],
+                                 np.float32)],
+                       dict(nan=0.0, posinf=1e30, neginf=-1e30))
+    c["clip_op"] = ([f(2, 3)], dict(lo=-0.5, hi=0.5))
+    c["scale_op"] = ([f(2, 3)], dict(scale=2.0, bias=1.0,
+                                     bias_after_scale=False))
+    for n in ("isfinite", "isinf", "isnan"):
+        c[n] = ([np.array([[1.0, np.nan, np.inf], [-np.inf, 0.0, 2.0]],
+                          np.float32)], {})
+    for n in ("add", "subtract", "multiply", "maximum", "minimum", "fmax",
+              "fmin", "hypot", "heaviside", "floor_divide", "kron"):
+        c[n] = ([f(2, 3), f(2, 3)], {})
+    c["divide"] = ([f(2, 3), pos(2, 3)], {})
+    for n in ("atan2", "pow_op"):
+        c[n] = ([pos(2, 3), pos(2, 3)], {})
+    c["remainder"] = ([pos(2, 3), pos(2, 3) + 1.6], {})
+    c["ldexp"] = ([f(2, 3), ints(2, 3, lo=0, hi=3)], {})
+    for n in ("gcd", "lcm", "bitwise_and", "bitwise_or", "bitwise_xor"):
+        c[n] = ([ints(3, 4), ints(3, 4)], {})
+    c["bitwise_not"] = ([ints(3, 4)], {})
+    for n in ("bitwise_left_shift", "bitwise_right_shift"):
+        c[n] = ([ints(3, 4, lo=0, hi=100), ints(3, 4, lo=0, hi=4)], {})
+    x = f(3, 4)
+    y = np.where(boolean(3, 4), x, f(3, 4)).astype(np.float32)
+    for n in ("equal", "not_equal", "greater_equal", "greater_than",
+              "less_equal", "less_than"):
+        c[n] = ([x, y], {})
+    c["isclose_op"] = ([x, y], dict(rtol=1e-5, atol=1e-8, equal_nan=False))
+    for n in ("logical_and", "logical_or", "logical_xor"):
+        c[n] = ([boolean(3, 4), boolean(3, 4)], {})
+    c["logical_not"] = ([boolean(3, 4)], {})
+    c["complex_op"] = ([f(2, 3), f(2, 3)], {})
+    c["inner_op"] = ([f(3), f(3)], {})
+    c["outer_op"] = ([f(3), f(2)], {})
+    c["dot_op"] = ([f(4), f(4)], {})
+    c["cross_op"] = ([f(2, 3), f(2, 3)], dict(axis=-1))
+    c["lerp"] = ([f(2, 3), f(2, 3), r.rand(2, 3).astype(np.float32)], {})
+    c["where_op"] = ([boolean(2, 3), f(2, 3), f(2, 3)], {})
+    c["add_n_op"] = ([f(2, 3), f(2, 3), f(2, 3)], {})
+    red = dict(axis=1, keepdim=False)
+    c["sum_op"] = ([f(3, 4)], dict(axis=(0, 1), keepdim=True, dtype=None))
+    for n in ("mean_op", "nansum_op", "nanmean_op", "logsumexp_op"):
+        c[n] = ([f(3, 4)], red)
+    for n in ("max_op", "min_op"):
+        c[n] = ([distinct(3, 4)], red)
+    c["prod_op"] = ([pos(3, 4)], dict(axis=None, keepdim=False))
+    for n in ("all_op", "any_op"):
+        c[n] = ([boolean(3, 4)], red)
+    c["count_nonzero_op"] = ([boolean(3, 4).astype(np.float32)], red)
+    for n in ("median_op", "nanmedian_op"):
+        c[n] = ([distinct(3, 5)], red)
+    for n in ("std_op", "var_op"):
+        c[n] = ([distinct(3, 4)], dict(axis=1, unbiased=True,
+                                       keepdim=False))
+    for n in ("quantile_op", "nanquantile_op"):
+        c[n] = ([distinct(3, 4)], dict(q=0.3, axis=1, keepdim=False,
+                                       interpolation="linear"))
+    c["norm_op"] = ([f(3, 4)], dict(p=2.0, axis=1, keepdim=False))
+    for n in ("argmax_op", "argmin_op"):
+        c[n] = ([distinct(3, 4)], dict(axis=1, keepdim=False,
+                                       dtype="int64"))
+    for n in ("cumsum_op", "logcumsumexp_op", "cummax_op", "cummin_op"):
+        c[n] = ([distinct(2, 4) / 8], dict(axis=1))
+    c["cumprod_op"] = ([pos(2, 4)], dict(axis=1))
+    c["reshape_op"] = ([f(2, 3)], dict(shape=(3, 2)))
+    c["transpose_op"] = ([f(2, 3)], dict(perm=(1, 0)))
+    c["squeeze_op"] = ([f(2, 1, 3)], dict(axis=(1,)))
+    c["unsqueeze_op"] = ([f(2, 3)], dict(axis=(1,)))
+    c["broadcast_to_op"] = ([f(1, 3)], dict(shape=(2, 3)))
+    c["tile_op"] = ([f(2, 2)], dict(reps=(2, 1)))
+    c["concat_op"] = ([f(2, 3), f(2, 3)], dict(axis=0))
+    c["stack_op"] = ([f(2, 3), f(2, 3)], dict(axis=1))
+    c["split_op"] = ([f(4, 3)], dict(indices=(1, 3), axis=0))
+    c["flip_op"] = ([f(2, 3)], dict(axis=(0,)))
+    c["roll_op"] = ([f(2, 3)], dict(shifts=1, axis=1))
+    c["rot90_op"] = ([f(2, 3)], dict(k=1, axes=(0, 1)))
+    c["moveaxis_op"] = ([f(2, 3, 4)], dict(src=0, dst=2))
+    for n in ("tril_op", "triu_op"):
+        c[n] = ([f(3, 3)], dict(diagonal=0))
+    c["diag_op"] = ([f(3)], dict(offset=1))
+    c["diag_embed_op"] = ([f(2, 3)], dict(offset=0, dim1=-2, dim2=-1))
+    c["diagonal_op"] = ([f(3, 3)], dict(offset=0, axis1=0, axis2=1))
+    c["diff_op"] = ([f(2, 4)], dict(n=1, axis=-1))
+    c["trace_op"] = ([f(3, 3)], dict(offset=0, axis1=0, axis2=1))
+    c["gather_op"] = ([f(4, 3), np.array([0, 2], np.int32)], dict(axis=0))
+    c["gather_nd_op"] = ([f(3, 3), np.array([[0, 1], [2, 2]], np.int32)],
+                         {})
+    c["index_select_op"] = ([f(4, 3), np.array([1, 3], np.int32)],
+                            dict(axis=0))
+    c["index_sample_op"] = ([f(2, 4), np.array([[0, 1], [2, 0]], np.int32)],
+                            {})
+    c["index_add_op"] = ([f(4, 3), np.array([0, 2], np.int32), f(2, 3)],
+                         dict(axis=0))
+    c["take_along_axis_op"] = ([f(3, 3), np.array([[0, 2], [1, 0], [2, 1]],
+                                                  np.int32)], dict(axis=1))
+    c["put_along_axis_op"] = ([f(3, 3), np.array([[0], [1], [2]], np.int32),
+                               f(3, 1)], dict(axis=1, reduce="add"))
+    c["scatter_op"] = ([f(4, 3), np.array([0, 2], np.int32), f(2, 3)],
+                       dict(overwrite=True))
+    c["scatter_nd_add_op"] = ([f(4, 3), np.array([[0], [2]], np.int32),
+                               f(2, 3)], {})
+    c["repeat_interleave_op"] = ([f(2, 3)], dict(repeats=2, axis=0))
+    c["sort_op"] = ([distinct(3, 4)], dict(axis=-1, descending=True))
+    c["argsort_op"] = ([distinct(3, 4)], dict(axis=-1, descending=False,
+                                              stable=True))
+    c["topk_op"] = ([distinct(3, 4)], dict(k=2, axis=-1, largest=True,
+                                           sorted=True))
+    c["searchsorted_op"] = ([np.sort(f(6)), f(2, 3)], dict(right=False))
+    c["as_strided_op"] = ([f(4, 4)], dict(shape=(2, 2), stride=(4, 1),
+                                          offset=1))
+    c["multiplex_op"] = ([np.array([[0], [1]], np.int32), f(2, 3), f(2, 3)],
+                         {})
+    c["masked_fill_op"] = ([f(2, 3), boolean(2, 3),
+                            np.array(0.5, np.float32)], {})
+    c["unfold_op"] = ([f(6, 2)], dict(axis=0, size=2, step=2))
+    static, dyn = encode_index((slice(1, None), np.array([0, 2])))
+    c["getitem_op"] = ([f(3, 3)] + [d.numpy() for d in dyn],
+                       dict(static=static))
+    c["setitem_op"] = ([f(3, 3), np.array(2.0, np.float32)]
+                       + [d.numpy() for d in dyn], dict(static=static))
+    c["pad_nd"] = ([f(3, 4)], dict(pad_width=((1, 2), (2, 1)),
+                                   mode="reflect", value=0.0))
+    c["cast_op"] = ([f(2, 3)], dict(dtype="float16", src_dtype=None))
+    c["tensordot_op"] = ([f(2, 3), f(3, 2)], dict(axes=1))
+    c["einsum_op"] = ([f(2, 3), f(3, 2)], dict(equation="ij,jk->ik"))
+    c["matmul_op"] = ([f(2, 3), f(2, 3)], dict(transpose_x=False,
+                                               transpose_y=True))
+    for n in ("det_op", "slogdet_op", "inv_op"):
+        c[n] = ([spd()], {})
+    c["cholesky_op"] = ([spd()], dict(upper=False))
+    c["matrix_power_op"] = ([spd()], dict(n=2))
+    c["pinv_op"] = ([f(3, 2)], dict(rcond=1e-15))
+    c["solve_op"] = ([spd(), f(3, 2)], {})
+    c["triangular_solve_op"] = ([np.triu(spd()), f(3, 2)],
+                                dict(upper=True, transpose=True,
+                                     unitriangular=False))
+    return c
+
+
+RANDOM_OPS = ("uniform_op", "normal_op", "randint_op", "bernoulli_op",
+              "poisson_op", "gamma_op")
+
+
+def run_op_case(name, args, kwargs, device):
+    """One registry op on ``args`` (numpy) as tensors on ``device``; its
+    outputs back on the CPU."""
+    from paddle_tpu_torch.ops.op import apply
+    targs = [None if a is None else torch.from_numpy(
+        np.ascontiguousarray(a)).to(device) for a in args]
+    out = apply(name, *targs, **kwargs)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return [o.detach().cpu() for o in outs]
+
+
+def random_op_draw(name, device):
+    """A random op's draw from a fresh generator of ``device`` seeded 5."""
+    from paddle_tpu_torch.ops.op import apply
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    full = (lambda v: torch.full((64, 64), v, device=device))
+    return {"uniform_op": lambda: apply("uniform_op", g, shape=(64, 64),
+                                        dtype="float32", lo=-1.0, hi=1.0),
+            "normal_op": lambda: apply("normal_op", g, 0.0, 1.0,
+                                       shape=(64, 64), dtype="float32"),
+            "randint_op": lambda: apply("randint_op", g, 0, 10,
+                                        shape=(64, 64), dtype="int64"),
+            "bernoulli_op": lambda: apply("bernoulli_op", g, full(0.3)),
+            "poisson_op": lambda: apply("poisson_op", g, full(3.0)),
+            "gamma_op": lambda: apply("gamma_op", g,
+                                      torch.tensor(2.0, device=device),
+                                      shape=(64, 64), dtype="float32"),
+            }[name]()
+
+
+def phase_ops(card):
+    """Every op of the port's registry on CUDA tensors against the same
+    call on CPU tensors: float32 within OPS_RTOL/OPS_ATOL, integer and
+    bool outputs exact; each random op's draws on the card reproduce under
+    the same seed and have the right shape and dtype."""
+    from paddle_tpu_torch.ops.op import all_ops
+    log("[10/10] ops: the registry on the card vs the CPU")
+    t0 = time.perf_counter()
+    cases = op_cases()
+    names = set(all_ops())
+    if set(cases) | set(RANDOM_OPS) != names:
+        raise AssertionError(f"ops without a case: "
+                             f"{sorted(names - set(cases) - set(RANDOM_OPS))}")
+    worst = 0.0
+    for name in sorted(cases):
+        args, kwargs = cases[name]
+        got = run_op_case(name, args, kwargs, "cuda")
+        want = run_op_case(name, args, kwargs, "cpu")
+        for g, w in zip(got, want):
+            if g.shape != w.shape or g.dtype != w.dtype:
+                raise AssertionError(f"op {name}: card {g.dtype} "
+                                     f"{tuple(g.shape)}, CPU {w.dtype} "
+                                     f"{tuple(w.shape)}")
+            if g.is_floating_point() or g.is_complex():
+                if not torch.allclose(g, w, rtol=OPS_RTOL, atol=OPS_ATOL,
+                                      equal_nan=True):
+                    raise AssertionError(f"op {name}: card and CPU differ "
+                                         f"by {(g - w).abs().max():.3e}")
+                fin = torch.isfinite(w) & torch.isfinite(g)
+                if fin.any():
+                    worst = max(worst, (g - w)[fin].abs().max().item())
+            elif not torch.equal(g, w):
+                raise AssertionError(f"op {name}: card and CPU differ")
+    for name in RANDOM_OPS:
+        a, b = random_op_draw(name, "cuda"), random_op_draw(name, "cuda")
+        if a.shape != (64, 64) or a.device.type != "cuda" or \
+                not torch.equal(a, b):
+            raise AssertionError(f"random op {name}: {a.dtype} "
+                                 f"{tuple(a.shape)} on {a.device}, "
+                                 f"reproducible {torch.equal(a, b)}")
+    log(f"  {len(cases)} ops agree card vs CPU (largest float difference "
+        f"{worst:.3e}); {len(RANDOM_OPS)} random ops reproduce under their "
+        f"generator's seed; {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2218,7 +2717,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/9] device")
+    log("[1/10] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -2229,7 +2728,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/9] build")
+    log("[2/10] build")
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -2237,19 +2736,22 @@ def main() -> int:
     for kname, info in built.items():
         build_report(kname, info)
 
-    log("[3/9] kernel vs plain version")
+    log("[3/10] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
-        phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw)
+        phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw) + \
+        [phase_fused_update(card, bw)]
     phase_decode_shapes(card, bw)
     phase_wide_heads(card)
     launches = {"rpa_decode": phase_serve(card)["rpa_decode"]}
     launches.update({n: v for n, v in phase_train(
-        card, PEAK_OPS[torch.bfloat16]).items() if n.startswith("flash_")})
+        card, PEAK_OPS[torch.bfloat16]).items()
+        if n.startswith("flash_") or n == "fused_update"})
     launches.update({n: v for n, v in phase_packed(card).items()
                      if n.startswith("varlen_")})
     phase_train_parity()
     launches.update(phase_quant_serve(card))
     phase_profiles(card)
+    phase_ops(card)
     # on the captured paths: each graph's launches a replay (checked
     # against the profiler in phase 9) times its replays
     launched_in = {"rpa_decode": "captured serve (phase 4)",
@@ -2257,6 +2759,7 @@ def main() -> int:
                    "flash_dq": "captured train (phase 5)",
                    "flash_dkv": "captured train (phase 5)",
                    "flash_bwd_delta": "captured train (phase 5)",
+                   "fused_update": "captured train (phase 5)",
                    "qmm_i8": "captured quantized serve (phase 8)",
                    "qmm_i4": "captured quantized serve (phase 8)",
                    "rpa_decode_quant": "captured quantized serve (phase 8)"}

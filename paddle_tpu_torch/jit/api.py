@@ -155,7 +155,9 @@ class TrainStepCapture:
         """Every kernel of the step, once, eagerly, moving no state:
         forward and backward on ``batch`` (zeros), the clip and the
         regularization on the grads, and the update on copies of each
-        parameter and its moments; the grads are dropped."""
+        parameter and its moments (a one-tensor table each); then the
+        device table of the captured update is built over the real
+        tensors, and the grads are dropped."""
         opt = self.optimizer
         self._drop_grads()
         self.loss_fn(self.model, *batch).backward()
@@ -174,6 +176,8 @@ class TrainStepCapture:
                                 self._step_no)
                 finally:
                     del names[id(copy)]
+            # the captured update's table, pointing at the real tensors
+            opt._prepare_update(params)
         self._drop_grads()
 
     # -- signatures -----------------------------------------------------------

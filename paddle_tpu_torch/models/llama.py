@@ -111,7 +111,7 @@ class LlamaAttention(nn.Module):
         self.register_buffer("_cos", cos, persistent=False)
         self.register_buffer("_sin", sin, persistent=False)
 
-    def forward(self, hidden, cache=None, positions=None):
+    def forward(self, hidden, attn_mask=None, cache=None, positions=None):
         b, s = hidden.shape[0], hidden.shape[1]
         q = self.q_proj(hidden).view(b, s, self.num_heads, self.head_dim)
         k = self.k_proj(hidden).view(b, s, self.num_kv_heads, self.head_dim)
@@ -128,8 +128,11 @@ class LlamaAttention(nn.Module):
             out = cache.attend(q)
         else:
             # full sequence (training and whole-sequence forwards): the
-            # flash kernels, forward and backward
-            out = F.scaled_dot_product_attention(q, k, v, is_causal=True,
+            # flash kernels, forward and backward; a mask takes the plain
+            # sdpa, as in the reference
+            out = F.scaled_dot_product_attention(q, k, v,
+                                                 attn_mask=attn_mask,
+                                                 is_causal=True,
                                                  training=self.training)
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
@@ -161,10 +164,11 @@ class LlamaDecoderLayer(nn.Module):
                                                 dtype=dt, device=device)
         self.mlp = LlamaMLP(config, device, generator)
 
-    def forward(self, hidden, cache=None, positions=None):
+    def forward(self, hidden, attn_mask=None, cache=None, positions=None):
         residual = hidden
         hidden = self.input_layernorm(hidden)
-        hidden = self.self_attn(hidden, cache=cache, positions=positions)
+        hidden = self.self_attn(hidden, attn_mask, cache=cache,
+                                positions=positions)
         hidden = residual + hidden
         residual = hidden
         hidden = self.post_attention_layernorm(hidden)
@@ -185,10 +189,11 @@ class LlamaModel(nn.Module):
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
                             dtype=dt, device=device)
 
-    def forward(self, input_ids, caches=None, positions=None):
+    def forward(self, input_ids, attn_mask=None, caches=None,
+                positions=None):
         hidden = self.embed_tokens(input_ids)
         for i, layer in enumerate(self.layers):
-            hidden = layer(hidden, cache=None if caches is None
+            hidden = layer(hidden, attn_mask, cache=None if caches is None
                            else caches[i], positions=positions)
         return self.norm(hidden)
 
@@ -212,9 +217,12 @@ class LlamaForCausalLM(nn.Module):
             generator=gen)
         self._serving_engine = None
 
-    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
-        """Full-sequence causal forward: (B, S) ids → (B, S, vocab)."""
-        hidden = self.llama(input_ids)
+    def forward(self, input_ids: torch.Tensor, attn_mask=None
+                ) -> torch.Tensor:
+        """Full-sequence causal forward: (B, S) ids → (B, S, vocab).
+        ``attn_mask`` (bool, True = attend, or additive float), broadcast
+        to (B, H, S, S), is applied on top of the causal mask."""
+        hidden = self.llama(input_ids, attn_mask)
         if self.lm_head is None:
             return F.linear(hidden, self.llama.embed_tokens.weight.t())
         return self.lm_head(hidden)

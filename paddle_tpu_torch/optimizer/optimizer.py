@@ -2,22 +2,25 @@
 ``paddle_tpu/optimizer/optimizer.py``).
 
 The reference runs one jitted update over the parameter list and gets new
-arrays back; here the update is written with torch ops on the parameter
-list and applied IN PLACE to the parameters and their moments.  In-place
-is where the port saves the memory that JAX saves by donating buffers:
-no second copy of the parameters or the moments exists during a step.
-The arithmetic follows the reference's order (decoupled decay on the
-parameter before the moment update, bias correction from the step
-count).  ``torch.optim`` is not used.
+arrays back; here the update is applied IN PLACE to the parameters and
+their moments, by ``ops/cuda/fused_update.py``: one launch of a
+hand-written multi-tensor kernel a dtype group for CUDA tensors, its plain
+version (a tensor at a time) for CPU tensors.  In-place is where the port
+saves the memory that JAX saves by donating buffers: no second copy of the
+parameters or the moments exists during a step.  The arithmetic follows
+the reference's order (decoupled decay on the parameter before the moment
+update, bias correction from the step count) in float32, each output
+rounded once.  ``torch.optim`` is not used.
 """
 
 from __future__ import annotations
 
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
+from ..ops.cuda import fused_update as _fu
 from ..regularizer import L2Decay
 from .lr import LRScheduler
 
@@ -59,6 +62,11 @@ class Optimizer:
         self._accumulators: Dict[str, Dict[int, torch.Tensor]] = \
             defaultdict(dict)
         self._global_step = 0
+        # the fused update's device tables (ops/cuda/fused_update.py), and
+        # step()'s learning rate and step number as 0-dim float32 tensors
+        # on each device, read by the update from device memory
+        self._update_tables: Dict = {}
+        self._scalars: Dict[torch.device, tuple] = {}
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
@@ -84,10 +92,36 @@ class Optimizer:
         return [p for p in self._parameter_list
                 if p.requires_grad and p.grad is not None]
 
+    # the fused kernel's update (fused_update.SGD or .ADAM; set by each
+    # optimizer) and its constants; AdamW adds per-tensor decay flags
+    _KIND: Optional[int] = None
+
+    def _hyper(self) -> dict:
+        return {}
+
+    def _decay_flags(self, params) -> List[bool]:
+        return [False] * len(params)
+
     def _update(self, lr, params, grads, states, step) -> None:
-        """Update ``params`` and ``states`` in place; ``lr`` and ``step`` as
-        :meth:`_apply` passes them.  Override."""
-        raise NotImplementedError
+        """Update ``params`` and ``states`` in place, one fused launch a
+        dtype group on the card; ``lr`` and ``step`` as :meth:`_apply`
+        passes them."""
+        if self._KIND is None:
+            raise NotImplementedError(f"{type(self).__name__}._update")
+        m1s, m2s = states if states else (None, None)
+        _fu.fused_update(self._KIND, params, grads, m1s, m2s,
+                         self._decay_flags(params), lr, step,
+                         cache=self._update_tables, **self._hyper())
+
+    def _prepare_update(self, params) -> None:
+        """Build, before a CUDA-graph capture, the device table that the
+        captured update of ``params`` reads (a capture cannot upload one);
+        nothing on the CPU."""
+        states = [[self._get_state(n, p) for p in params]
+                  for n in self._STATE_NAMES]
+        m1s, m2s = states if states else (None, None)
+        _fu.prepare(self._KIND, params, m1s, m2s, self._decay_flags(params),
+                    self._update_tables)
 
     def _decoupled_wd(self) -> bool:
         return False
@@ -104,9 +138,10 @@ class Optimizer:
     def _apply(self, params, grads, lr, step) -> None:
         """Clip, regularize and update ``params`` in place: the body of
         :meth:`step` and of a captured train step.  ``lr`` and ``step`` are
-        Python numbers here, and 0-dim float32 tensors on the parameters'
-        device in a captured step, where a Python number would be captured
-        as a constant and every replay would reuse it."""
+        0-dim float32 tensors on the parameters' device: :meth:`step`
+        fills the optimizer's own pair, ``TrainStepCapture`` its pair (a
+        Python number would be captured as a constant and every replay
+        would reuse it)."""
         grads = self._prepare_grads(params, grads)
         states = [[self._get_state(n, p) for p in params]
                   for n in self._STATE_NAMES]
@@ -117,8 +152,15 @@ class Optimizer:
         params = self._params_with_grad()
         self._global_step += 1
         if params:
-            self._apply(params, [p.grad for p in params], self.get_lr(),
-                        self._global_step)
+            dev = params[0].device
+            pair = self._scalars.get(dev)
+            if pair is None:
+                pair = tuple(torch.zeros((), dtype=torch.float32,
+                                         device=dev) for _ in range(2))
+                self._scalars[dev] = pair
+            pair[0].fill_(self.get_lr())
+            pair[1].fill_(self._global_step)
+            self._apply(params, [p.grad for p in params], *pair)
 
     def clear_grad(self, set_to_zero: bool = False) -> None:
         """Drop every gradient.  ``set_to_zero`` is accepted for the API and,
@@ -130,14 +172,12 @@ class Optimizer:
 
 class SGD(Optimizer):
     _STATE_NAMES: List[str] = []
-
-    def _update(self, lr, params, grads, states, step):
-        for p, g in zip(params, grads):
-            p.sub_(lr * g.to(p.dtype))
+    _KIND = _fu.SGD
 
 
 class Adam(Optimizer):
     _STATE_NAMES = ["moment1", "moment2"]
+    _KIND = _fu.ADAM
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
@@ -149,27 +189,9 @@ class Adam(Optimizer):
         self._beta2 = float(beta2)
         self._epsilon = float(epsilon)
 
-    def _corrections(self, step):
-        """The bias corrections 1 - b1^step and 1 - b2^step, formed once
-        for all parameters (0-dim tensors when ``step`` is one)."""
-        return 1.0 - self._beta1 ** step, 1.0 - self._beta2 ** step
-
-    def _adam(self, lr, p, g, m1, m2, bc1, bc2) -> None:
-        """m1 <- b1 m1 + (1 - b1) g;  m2 <- b2 m2 + (1 - b2) g^2;
-        p <- p - lr (m1 / bc1) / (sqrt(m2 / bc2) + eps), in place, with g
-        in the moments' dtype and the update cast to p's."""
-        b1, b2, eps = self._beta1, self._beta2, self._epsilon
-        gf = g.to(m1.dtype)
-        m1.mul_(b1).add_(gf, alpha=1 - b1)
-        m2.mul_(b2).add_((1 - b2) * gf * gf)
-        upd = lr * (m1 / bc1) / (torch.sqrt(m2 / bc2) + eps)
-        p.sub_(upd.to(p.dtype))
-
-    def _update(self, lr, params, grads, states, step):
-        m1s, m2s = states
-        bc1, bc2 = self._corrections(step)
-        for p, g, m1, m2 in zip(params, grads, m1s, m2s):
-            self._adam(lr, p, g, m1, m2, bc1, bc2)
+    def _hyper(self) -> dict:
+        return dict(beta1=self._beta1, beta2=self._beta2,
+                    epsilon=self._epsilon)
 
 
 class AdamW(Adam):
@@ -196,14 +218,16 @@ class AdamW(Adam):
     def _decoupled_wd(self) -> bool:
         return True
 
-    def _update(self, lr, params, grads, states, step):
-        m1s, m2s = states
+    def _hyper(self) -> dict:
+        return dict(super()._hyper(), coeff=self._coeff)
+
+    def _decay_flags(self, params) -> List[bool]:
+        """A flag a parameter, into the fused update's table: decay where
+        ``coeff`` is not 0 and ``apply_decay_param_fun(name)`` says so."""
         fun = self._apply_decay_param_fun
-        bc1, bc2 = self._corrections(step)
-        keep = 1.0 - lr * self._coeff
-        for p, g, m1, m2 in zip(params, grads, m1s, m2s):
-            decay = fun is None or bool(fun(self._param_names.get(id(p),
-                                                                  "")))
-            if decay and self._coeff != 0.0:
-                p.mul_(keep)
-            self._adam(lr, p, g, m1, m2, bc1, bc2)
+        if self._coeff == 0.0:
+            return [False] * len(params)
+        if fun is None:
+            return [True] * len(params)
+        names = self._param_names
+        return [bool(fun(names.get(id(p), ""))) for p in params]

@@ -80,7 +80,8 @@ def test_captured_train_step_matches_eager_and_launches_per_replay(
         cuda_device):
     """5 steps with a changing learning rate: the graph's losses and
     parameters within 1e-5 of the eager loop's on the card; its replays
-    launch each flash kernel once a layer, and nothing recaptures."""
+    launch each flash kernel once a layer and the fused update once, and
+    nothing recaptures."""
     card, twin = tiny_pair()
     twin = twin.to(cuda_device)
     ids, labels = (x.to(cuda_device) for x in train_batch())
@@ -108,10 +109,12 @@ def test_captured_train_step_matches_eager_and_launches_per_replay(
     assert opt._global_step == 5
     (graph,) = step.graphs()
     layers = card.config.num_hidden_layers
-    assert graph.launches == {n: layers for n in FLASH}
+    # one fused update a replay: every parameter is f32, one dtype group
+    assert graph.launches == {**{n: layers for n in FLASH},
+                              "fused_update": 1}
     assert graph.replays == 5
-    assert replayed_launches(step.graphs()) == {n: 5 * layers
-                                                for n in FLASH}
+    assert replayed_launches(step.graphs()) == {
+        **{n: 5 * layers for n in FLASH}, "fused_update": 5}
     assert cc.retrace_count() == 0
 
 

@@ -734,3 +734,167 @@ def test_varlen_and_ragged_kernels_refuse_what_they_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="shape"):
         fa.flash_attention_ragged_bhsd(q[None], q[None], q[None], lens[:0])
     assert LAUNCH_COUNTS == before
+
+
+# -- the fused optimizer update ---------------------------------------------
+
+FU_GROUPS = {"f32": (torch.float32, torch.float32),
+             "f16": (torch.float16, torch.float16),
+             "bf16": (torch.bfloat16, torch.bfloat16),
+             "f16_f32": (torch.float16, torch.float32),
+             "bf16_f32": (torch.bfloat16, torch.float32)}
+# mantissa bits of each storage type: kernel and plain version compute the
+# same f32 operations in the same order (powf aside), so a 16-bit output is
+# within one ulp of the plain version's and an f32 one within 1e-6
+FU_MANT = {torch.float32: None, torch.float16: 10, torch.bfloat16: 7}
+
+
+def fu_close(got, want, what):
+    mant = FU_MANT[got.dtype]
+    got, want = got.float(), want.float()
+    if mant is None:
+        bound = 1e-6 * want.abs() + 1e-30
+    else:
+        bound = torch.exp2(torch.floor(torch.log2(
+            want.abs().clamp_min(2.0 ** -24))) - mant)
+    bad = (got - want).abs() > bound
+    assert not bad.any(), f"{what}: {int(bad.sum())} elements off"
+
+
+def fu_case(device, kind, p_dtype, m_dtype, sizes, seed=0):
+    """Parameters (one an odd view, so its addresses are not 16-byte
+    aligned), grads and moments: two copies, for the kernel and for the
+    plain version."""
+    from paddle_tpu_torch.ops.cuda import fused_update as fu
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    sets = []
+    for n in sizes:
+        p = torch.randn(n, generator=g)
+        gr = torch.randn(n, generator=g) * 0.1
+        m1 = torch.randn(n, generator=g) * 0.01
+        m2 = torch.rand(n, generator=g) * 1e-3
+        sets.append((p, gr, m1, m2))
+    out = []
+    for _ in range(2):
+        ps, gs, m1s, m2s = [], [], [], []
+        for i, (p, gr, m1, m2) in enumerate(sets):
+            if i == 1:       # an odd offset into a larger buffer
+                base = torch.zeros(p.numel() + 1, dtype=p_dtype,
+                                   device=device)
+                pv = base[1:]
+                pv.copy_(p)
+                gb = torch.zeros_like(base)
+                gv = gb[1:]
+                gv.copy_(gr)
+            else:
+                pv = p.to(device, p_dtype)
+                gv = gr.to(device, p_dtype)
+            ps.append(pv)
+            gs.append(gv)
+            m1s.append(m1.to(device, m_dtype))
+            m2s.append(m2.to(device, m_dtype))
+        out.append((ps, gs, m1s, m2s))
+    decay = [i % 2 == 0 for i in range(len(sizes))]
+    return fu, out, decay
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sgd", "adam", "adamw"])
+@pytest.mark.parametrize("group", sorted(FU_GROUPS))
+def test_fused_update_matches_plain_version(cuda_device, kind, group):
+    """Odd sizes (1, 7, 4095, 4096 + 3, 65536 + 5: tails, a chunk
+    boundary, an unaligned view), two steps with lr and step as 0-dim
+    device tensors, mixed decay flags (AdamW): the kernel's p, m1, m2
+    within one ulp (16-bit) or 1e-6 (f32) of the plain version's; one
+    launch a call."""
+    p_dtype, m_dtype = FU_GROUPS[group]
+    if kind == "sgd" and m_dtype != p_dtype:
+        pytest.skip("SGD keeps no moments")
+    fu, (a, b), decay = fu_case(cuda_device, kind, p_dtype, m_dtype,
+                                [1, 4099, 7, 4095, 65541])
+    op = fu.SGD if kind == "sgd" else fu.ADAM
+    if kind != "adamw":
+        decay = [False] * len(decay)
+    kw = dict(beta1=0.9, beta2=0.999, epsilon=1e-8,
+              coeff=0.1 if kind == "adamw" else 0.0)
+    cache = {}
+    for step in (1, 2):
+        lr = torch.tensor(1e-2 * step, dtype=torch.float32,
+                          device=cuda_device)
+        st = torch.tensor(float(step), dtype=torch.float32,
+                          device=cuda_device)
+        before = LAUNCH_COUNTS["fused_update"]
+        fu.fused_update(op, *a, decay, lr, st, cache=cache, **kw)
+        assert LAUNCH_COUNTS["fused_update"] - before == 1
+        fu.fused_update_ref(op, *b[:2], b[2] if op else None,
+                            b[3] if op else None, decay, lr, st, **kw)
+    torch.cuda.synchronize()
+    for i in range(len(a[0])):
+        fu_close(a[0][i], b[0][i], f"p[{i}]")
+        if op == fu.ADAM:
+            fu_close(a[2][i], b[2][i], f"m1[{i}]")
+            fu_close(a[3][i], b[3][i], f"m2[{i}]")
+    assert len(cache) == 1
+
+
+@pytest.mark.gpu
+def test_fused_update_at_a_llama_shape(cuda_device):
+    """4096 x 11008 in bf16 (AdamW, decay) and with f32 moments: within one
+    ulp of the plain version."""
+    for m_dtype in (torch.bfloat16, torch.float32):
+        fu, (a, b), _ = fu_case(cuda_device, "adamw", torch.bfloat16,
+                                m_dtype, [4096 * 11008])
+        lr = torch.tensor(3e-4, device=cuda_device)
+        st = torch.tensor(3.0, device=cuda_device)
+        kw = dict(coeff=0.01)
+        fu.fused_update(fu.ADAM, *a, [True], lr, st, **kw)
+        fu.fused_update_ref(fu.ADAM, *b, [True], lr, st, **kw)
+        torch.cuda.synchronize()
+        for j, name in ((0, "p"), (2, "m1"), (3, "m2")):
+            fu_close(a[j][0], b[j][0], name)
+
+
+@pytest.mark.gpu
+def test_fused_update_groups_by_dtype_and_follows_moved_grads(cuda_device):
+    """A call over f32 and bf16 parameters launches once a group; grads at
+    new addresses on a later call are read there (the table's grad
+    entries are rewritten)."""
+    from paddle_tpu_torch.ops.cuda import fused_update as fu
+    ps = [torch.randn(100, device=cuda_device),
+          torch.randn(100, device=cuda_device).bfloat16(),
+          torch.randn(33, device=cuda_device)]
+    ref = [p.clone() for p in ps]
+    lr = torch.tensor(0.5, device=cuda_device)
+    st = torch.tensor(1.0, device=cuda_device)
+    cache = {}
+    for k in range(3):
+        gs = [torch.full_like(p, float(k + 1)) for p in ps]
+        before = LAUNCH_COUNTS["fused_update"]
+        fu.fused_update(fu.SGD, ps, gs, None, None, None, lr, st,
+                        cache=cache)
+        assert LAUNCH_COUNTS["fused_update"] - before == 2
+        fu.fused_update_ref(fu.SGD, ref, gs, None, None, None, lr, st)
+        del gs
+    torch.cuda.synchronize()
+    for p, r in zip(ps, ref):
+        assert torch.equal(p, r)
+
+
+@pytest.mark.gpu
+def test_fused_update_refuses_what_it_cannot_take(cuda_device):
+    from paddle_tpu_torch.ops.cuda import fused_update as fu
+    p = torch.zeros(8, device=cuda_device)
+    lr = torch.tensor(0.1, device=cuda_device)
+    st = torch.tensor(1.0, device=cuda_device)
+    before = dict(LAUNCH_COUNTS)
+    with pytest.raises(TypeError, match="grad"):
+        fu.fused_update(fu.SGD, [p], [p.half()], None, None, None, lr, st)
+    with pytest.raises(TypeError, match="group"):
+        fu.fused_update(fu.ADAM, [p.half()], [p.half()], [p.bfloat16()],
+                        [p.bfloat16()], [False], lr, st)
+    with pytest.raises(TypeError, match="0-dim float32"):
+        fu.fused_update(fu.SGD, [p], [p], None, None, None, 0.1, st)
+    with pytest.raises(TypeError, match="float32"):
+        fu.fused_update(fu.SGD, [p.double()], [p.double()], None, None,
+                        None, lr, st)
+    assert LAUNCH_COUNTS == before

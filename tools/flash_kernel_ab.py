@@ -42,8 +42,21 @@ quantized serve's), at M=8 (a decode step) and M=256 (a prefill chunk)
 over Llama-7B's four Linear shapes (chip_smoke.py's ``LLAMA7B_LINEARS``)
 and at M=1 over the lm_head, each with its largest relative L2 distance
 from this tree's plain version, and the sum over one decode step's 225
-products at M=8.  ``--kernels flash,rpa,qmm`` times all three.  Run it
-from the repository root on a machine with a card and nvcc.
+products at M=8.
+
+    python3 tools/flash_kernel_ab.py OLD_CSRC NEW_CSRC --kernels update
+
+times the optimizer's AdamW update at bench_llama's 210 parameter shapes
+(chip_smoke.py's ``train_param_shapes`` at the train phase's depth, bf16
+parameters, grads and moments, 4.917 B parameters on an 80 GB card): a
+tree with ``fused_update.cu`` through its own ``fused_update.py`` (one
+launch), a tree without it in the per-tensor form of the optimizer before
+the fused kernel (a dozen elementwise passes a tensor), once with lr and
+step as 0-dim device tensors (as a captured step passes them) and once as
+Python floats (as the eager step did), with each tree's largest relative
+L2 distance of p, m1 and m2 from the plain version's after one update.
+``--kernels flash,rpa,qmm,update`` times all four.  Run it from the
+repository root on a machine with a card and nvcc.
 """
 
 from __future__ import annotations
@@ -64,8 +77,9 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from chip_smoke import (LLAMA7B_LINEARS, PACKED_DOCS,  # noqa: E402
-                        SERVE_LENS, cu_of, decode_shapes, nvidia_smi,
-                        quant_pools, rpa_inputs, time_ms)
+                        SERVE_LENS, TRAIN_DIMS, cu_of, decode_shapes,
+                        fu_tensors, nvidia_smi, quant_pools, rpa_inputs,
+                        time_ms, train_layers, train_param_shapes)
 from paddle_tpu_torch.ops.cuda import _build  # noqa: E402
 from paddle_tpu_torch.ops.cuda import attention as rpa_ref  # noqa: E402
 from paddle_tpu_torch.ops.cuda import flash_attention as ref  # noqa: E402
@@ -122,8 +136,10 @@ def wrappers(index: int, tree: str, lib_dir: Path):
     cuda = f"{name}.ops.cuda"
     fa = importlib.import_module(f"{cuda}.flash_attention")
     fa._build.load = lambda lib: ctypes.CDLL(str(lib_dir / f"lib{lib}.so"))
+    fu = (importlib.import_module(f"{cuda}.fused_update")
+          if (cuda_dir / "fused_update.py").exists() else None)
     return (fa, importlib.import_module(f"{cuda}.attention"),
-            importlib.import_module(f"{cuda}.quant_matmul"))
+            importlib.import_module(f"{cuda}.quant_matmul"), fu)
 
 
 def decode_inputs():
@@ -224,6 +240,72 @@ def time_qmm(i, tree, qm, cases):
               f"plain {err:.2e}", flush=True)
 
 
+def per_tensor_adamw(ps, gs, m1s, m2s, lr, step, b1=0.9, b2=0.999,
+                     eps=1e-8, coeff=0.01):
+    """The update before the fused kernel (``AdamW._update`` with
+    ``Adam._adam`` at 922d7f8): a tensor at a time, each operation a pass
+    of its own, rounded in the tensors' dtype."""
+    bc1, bc2 = 1.0 - b1 ** step, 1.0 - b2 ** step
+    keep = 1.0 - lr * coeff
+    for p, g, m1, m2 in zip(ps, gs, m1s, m2s):
+        p.mul_(keep)
+        gf = g.to(m1.dtype)
+        m1.mul_(b1).add_(gf, alpha=1 - b1)
+        m2.mul_(b2).add_((1 - b2) * gf * gf)
+        upd = lr * (m1 / bc1) / (torch.sqrt(m2 / bc2) + eps)
+        p.sub_(upd.to(p.dtype))
+
+
+def time_update(i, tree, fu):
+    """The AdamW update at the train shapes in tree ``i``'s form, and its
+    distance from the plain version after one update from the same
+    state."""
+    from paddle_tpu_torch.ops.cuda import fused_update as fu_ref
+    layers = train_layers(torch.cuda.get_device_properties(0).total_memory,
+                          *TRAIN_DIMS[:2], TRAIN_DIMS[4])
+    shapes = train_param_shapes(layers)
+    ((ps, gs, m1s, m2s),) = fu_tensors(shapes, torch.bfloat16,
+                                       torch.bfloat16, 91, copies=1)
+    n = sum(p.numel() for p in ps)
+    lr_t = torch.tensor(1e-6, device="cuda")
+    st_t = torch.tensor(3.0, device="cuda")
+    flags = [True] * len(ps)
+    # one update against the plain version's from the same state, held on
+    # the embedding, the first layer's norm and q, and the lm_head (a copy
+    # of every tensor would not fit beside them)
+    idx = [0, 1, 2, len(ps) - 1]
+    saved = [(ps[j].clone(), m1s[j].clone(), m2s[j].clone()) for j in idx]
+    if fu is not None:
+        fu.fused_update(fu.ADAM, ps, gs, m1s, m2s, flags, lr_t, st_t,
+                        coeff=0.01)
+    else:
+        per_tensor_adamw(ps, gs, m1s, m2s, lr_t, st_t)
+    err = 0.0
+    for j, (p0, a0, b0) in zip(idx, saved):
+        fu_ref.fused_update_ref(fu_ref.ADAM, [p0], [gs[j]], [a0], [b0],
+                                [True], lr_t, st_t, coeff=0.01)
+        err = max(err, rel(ps[j], p0), rel(m1s[j], a0), rel(m2s[j], b0))
+    del saved
+    if fu is not None:
+        cache = {}
+        forms = {"fused kernel": lambda: fu.fused_update(
+            fu.ADAM, ps, gs, m1s, m2s, flags, lr_t, st_t, coeff=0.01,
+            cache=cache)}
+    else:
+        forms = {"per-tensor passes, device scalars":
+                 lambda: per_tensor_adamw(ps, gs, m1s, m2s, lr_t, st_t),
+                 "per-tensor passes, Python floats":
+                 lambda: per_tensor_adamw(ps, gs, m1s, m2s, 1e-6, 3)}
+    parts = [f"{k} {time_ms(fn, iters=5, warmup=1):.3f} ms"
+             for k, fn in forms.items()]
+    print(f"tree {i} ({tree}) AdamW update, {len(ps)} tensors "
+          f"({n / 1e9:.3f} B bf16): " + ", ".join(parts)
+          + f"; bound {n * 14 / 3.35e12 * 1e3:.3f} ms at 3.35 TB/s; max rel "
+          f"L2 vs plain after one update (4 tensors) {err:.2e}", flush=True)
+    del ps, gs, m1s, m2s
+    torch.cuda.empty_cache()
+
+
 def rel(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
@@ -235,8 +317,8 @@ def main() -> int:
                     help="comma-separated tree indices (default: 0..n-1 "
                          "then n-1..0)")
     ap.add_argument("--kernels", default="flash",
-                    help="comma-separated: flash, rpa, qmm (default "
-                         "flash)")
+                    help="comma-separated: flash, rpa, qmm, update "
+                         "(default flash)")
     args = ap.parse_args()
     kinds = set(args.kernels.split(","))
     if not torch.cuda.is_available():
@@ -248,7 +330,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = build(args.trees, (["flash_*.cu"] if "flash" in kinds else [])
                  + (["rpa_decode.cu"] if "rpa" in kinds else [])
-                 + (["quant_matmul.cu"] if "qmm" in kinds else []))
+                 + (["quant_matmul.cu"] if "qmm" in kinds else [])
+                 + (["fused_update.cu"] if "update" in kinds else []))
     mods = [wrappers(i, t, d) for i, (t, d) in enumerate(zip(args.trees,
                                                              libs))]
     print(f"built {n} trees in {time.perf_counter() - t0:.1f} s")
@@ -263,6 +346,9 @@ def main() -> int:
         for i in order:
             time_qmm(i, args.trees[i], mods[i][2], cases)
         del cases
+    if "update" in kinds:
+        for i in order:
+            time_update(i, args.trees[i], mods[i][3])
     if "flash" not in kinds:
         return 0
     g = torch.Generator(device="cuda").manual_seed(0)
