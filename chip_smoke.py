@@ -1328,8 +1328,9 @@ def fu_tensors(shapes, p_dtype, m_dtype, seed, copies=2):
 def phase_fused_update(card, bw):
     """The fused update (SGD, Adam, AdamW) against its plain version over
     the dtype groups (f32; bf16; bf16 with f32 moments), mixed decay flags
-    and sizes 1, 7, 4095 and 4096 x 11008, two steps each; then its time at
-    the train phase's 210 parameters (bf16, AdamW), beside the plain
+    and sizes 1, 7, 4095 and 4096 x 11008, two steps each; then at the
+    train phase's 210 parameters (bf16, AdamW) in one table, six of them
+    against the plain version, and its time there, beside the plain
     version's (a tensor at a time) and torch's fused AdamW
     (``torch._fused_adamw_``)."""
     from paddle_tpu_torch.ops.cuda import fused_update as fu
@@ -1378,6 +1379,35 @@ def phase_fused_update(card, bw):
     st = torch.tensor(3.0, device="cuda")
     flags = [True] * len(ps)
     cache = {}
+    # the call the train path makes (all 210 tensors in one table), held to
+    # the plain version on the embedding, the first layer's input norm and
+    # q projection, the last layer's down projection, the final norm and
+    # the lm_head (copies of all 210 would not fit beside them); lr 1e-2
+    # here so that the bf16 parameters move by more than an ulp
+    idx = [0, 1, 2, len(ps) - 3, len(ps) - 2, len(ps) - 1]
+    saved = [(ps[j].clone(), m1s[j].clone(), m2s[j].clone()) for j in idx]
+    before = [ps[j].clone() for j in idx]
+    lr_check = torch.tensor(1e-2, device="cuda")
+    fu.fused_update(fu.ADAM, ps, gs, m1s, m2s, flags, lr_check, st,
+                    coeff=0.01, cache=cache)
+    fu.fused_update_ref(fu.ADAM, [s[0] for s in saved], [gs[j] for j in idx],
+                        [s[1] for s in saved], [s[2] for s in saved],
+                        [True] * len(idx), lr_check, st, coeff=0.01)
+    torch.cuda.synchronize()
+    err = 0.0
+    for j, (p0, a0, b0) in zip(idx, saved):
+        for got, want, what in ((ps[j], p0, "p"), (m1s[j], a0, "m1"),
+                                (m2s[j], b0, "m2")):
+            err = max(err, fu_check(got, want, f"train call {what}[{j}] "
+                                    f"{tuple(got.shape)}"))
+    errs.append(err)
+    moved = sum(int((ps[j] != b).sum()) for j, b in zip(idx, before))
+    if not moved:
+        raise AssertionError("fused_update train call: no parameter moved")
+    log(f"  fused_update at the train phase's {len(ps)} parameters in one "
+        f"table (bf16, AdamW): tensors {idx} agree with the plain version "
+        f"(max abs err {err:.3e}, {moved} parameter elements moved)")
+    del saved, before
     ms = time_ms(lambda: fu.fused_update(fu.ADAM, ps, gs, m1s, m2s, flags,
                                          lr, st, coeff=0.01, cache=cache),
                  iters=10, warmup=2)
@@ -2008,6 +2038,10 @@ def profile_train_step(step, card, label="profiled train step",
         + f"); elementwise_kernel<128, 4>: "
         f"{sum(e.count for e in bcast)} launches, "
         f"{sum(e.self_device_time_total for e in bcast) / 1e3:.3f} ms")
+    if bcast:
+        raise AssertionError(f"{label}: elementwise_kernel<128, 4> "
+                             f"launched {sum(e.count for e in bcast)}x "
+                             f"(the unfused update's broadcast passes)")
     if graph is not None:
         check_profiled(rows, graph.launches, 1, label)
 

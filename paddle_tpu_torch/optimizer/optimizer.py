@@ -116,7 +116,10 @@ class Optimizer:
     def _prepare_update(self, params) -> None:
         """Build, before a CUDA-graph capture, the device table that the
         captured update of ``params`` reads (a capture cannot upload one);
-        nothing on the CPU."""
+        nothing on the CPU, nor for an optimizer whose own ``_update``
+        takes no fused kernel (``_KIND`` None)."""
+        if self._KIND is None:
+            return
         states = [[self._get_state(n, p) for p in params]
                   for n in self._STATE_NAMES]
         m1s, m2s = states if states else (None, None)

@@ -153,3 +153,28 @@ def test_adam_l2_decay_stays_in_the_grads():
     opt.step()
     # g = 0 + 0.5 * 2 = 1: Adam's first step moves by lr
     np.testing.assert_allclose(w.detach().numpy(), 1.9, rtol=1e-6)
+
+
+def test_an_optimizer_with_its_own_update_prepares_no_table(monkeypatch):
+    """A subclass that overrides ``_update`` and leaves ``_KIND`` None
+    (one accumulator, as a momentum optimizer has) builds no fused table
+    before a capture, and its own update still runs."""
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("fused_update.prepare called")
+
+    class Heavy(topt.Optimizer):
+        _STATE_NAMES = ["velocity"]
+
+        def _update(self, lr, params, grads, states, step):
+            for p, g, v in zip(params, grads, states[0]):
+                v.mul_(0.9).add_(g)
+                p.sub_(lr * v)
+
+    monkeypatch.setattr(fu, "prepare", refuse)
+    w = torch.nn.Parameter(torch.ones(3))
+    opt = Heavy(learning_rate=0.5, parameters=[w])
+    opt._prepare_update([w])
+    w.sum().backward()
+    opt.step()
+    np.testing.assert_allclose(w.detach().numpy(), 0.5, rtol=1e-6)
