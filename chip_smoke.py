@@ -70,9 +70,27 @@ and prints no result line):
    record, after every timed phase, since a profiler run slows the host
    side of later work;
 10. ops — every op of the port's registry (``paddle_tpu_torch/ops/op.py``)
-   on CUDA tensors against the same call on CPU tensors at small shapes
-   (f32 within 1e-5, integer and bool exact; random ops by shape, dtype
-   and determinism of their generator).
+   on CUDA tensors against the same call on CPU tensors (f32 within 1e-5,
+   integer and bool exact; random ops by shape, dtype and determinism of
+   their generator): the tensor ops at small shapes, the nn ops at the
+   flagship's width (4096 tokens x 4096, softmax_ce over 32000 classes),
+   forward and backward, each op that sums thousands of terms within its
+   own bound (NN_TOL), the dropout ops' realised keep rate and scale
+   there, and ``cross_entropy`` with class weights, ignore_index rows and
+   label smoothing at (4096, 32000); the registry
+   entries over the hand-written kernels (flash_sdpa, varlen_flash,
+   paged_attention, paged_attention_quant, quant_matmul) at phase 3's
+   shapes against the kernels' plain versions, each launching its kernel;
+11. nn surface and checkpoints — (a) Llama-7B (a ``Layer``) saved with
+   ``paddle_tpu_torch.save`` in the reference's checkpoint format and
+   loaded into a second Llama-7B built from another seed (the first freed
+   before): every tensor bitwise equal, phase 4's prompts give the same
+   greedy tokens and bitwise the same first-decode-step logits; save and
+   load seconds and the file's GB printed; (b) a model built only from
+   the nn surface (Sequential of Linear 4096x11008, GELU, Dropout,
+   Linear, LayerNorm) takes 3 AdamW steps with ``clip_grad_norm_`` on
+   (8, 512, 4096) f32 inputs, its first step with dropout off equal to
+   the CPU's.
 
 The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 ``launches`` counted on the path named by its ``launches_in``); the last is
@@ -1722,7 +1740,7 @@ def phase_serve(card):
                                                llama_7b_config,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/10] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/11] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -1863,7 +1881,7 @@ def phase_train(card, peak_ops):
     hidden, _, _, seq, _, batch = TRAIN_DIMS
     layers, total, model, opt, step = train_setup()
     n_params = model.num_params()
-    log(f"[5/10] train Llama-7B width, {layers} of 32 layers (bench.py's "
+    log(f"[5/11] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
         f"bf16, AdamW: eager, then TrainStepCapture")
     steps = 3
@@ -2059,7 +2077,7 @@ def phase_packed(card):
     layers, bf16 = 32, torch.bfloat16
     cu = cu_of(PACKED_DOCS)
     t, longest, scale = int(cu[-1]), max(PACKED_DOCS), 1.0 / math.sqrt(d)
-    log(f"[6/10] packed attention: flash_attn_unpadded forward and backward "
+    log(f"[6/11] packed attention: flash_attn_unpadded forward and backward "
         f"at Llama-7B attention width ({heads} heads x {d}), {layers} "
         f"layers, T={t} in documents {list(PACKED_DOCS)}, bf16, causal")
     inputs = []
@@ -2149,7 +2167,7 @@ def phase_train_parity():
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.optimizer import AdamW
-    log("[7/10] train parity: tiny f32 Llama, card vs CPU")
+    log("[7/11] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
     on_card = LlamaForCausalLM(cfg, seed=SEED)
     on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
@@ -2159,7 +2177,7 @@ def phase_train_parity():
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
     losses = {}
     for name, model in (("card", on_card), ("cpu", on_cpu)):
-        dev = next(model.parameters()).device
+        dev = next(iter(model.parameters())).device
         opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
                     weight_decay=0.01)
         losses[name] = []
@@ -2220,7 +2238,7 @@ def train_parity_captured():
     for _ in range(5):
         lrs.append(opts["captured"].get_lr())
         for name, m in models.items():
-            dev = next(m.parameters()).device
+            dev = next(iter(m.parameters())).device
             if name in steps:
                 loss = steps[name](ids, labels)
             else:
@@ -2376,7 +2394,7 @@ def phase_quant_serve(card):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[8/10] quantized serve: Llama-7B (full width and depth), (a) int8 "
+    log("[8/11] quantized serve: Llama-7B (full width and depth), (a) int8 "
         "weights + int8 KV")
     launches = quant_serve_run(card, 8, "int8")
     log("  (b) int4 weights + bf16 KV")
@@ -2435,7 +2453,7 @@ def phase_profiles(card) -> None:
                                                llama_7b_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[9/10] where the time goes (torch.profiler, after the timed phases)")
+    log("[9/11] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
     prompts = serve_prompts(SEED, cfg.vocab_size)
     for bits, kv, label in ((None, "off", "bf16"),
@@ -2478,10 +2496,12 @@ def phase_profiles(card) -> None:
 
 # -- phase 10: ops ---------------------------------------------------------------
 
-def op_cases():
-    """{op: (args, kwargs)} for every non-random op of the port's registry:
-    small numpy inputs from a seed, each op's static attributes as keywords
-    (the registry's calling convention; domains kept clear of kinks)."""
+def op_cases(full: bool = False):
+    """{op: (args, kwargs)} for every op of the port's registry but the
+    random ones and the kernel entries: small numpy inputs from a seed,
+    each op's static attributes as keywords (the registry's calling
+    convention; domains kept clear of kinks); the nn ops at the flagship's
+    width where ``full`` (``nn_op_cases``)."""
     from paddle_tpu_torch.tensor._helpers import encode_index
     r = np.random.RandomState(SEED + 7)
 
@@ -2660,22 +2680,180 @@ def op_cases():
     c["triangular_solve_op"] = ([np.triu(spd()), f(3, 2)],
                                 dict(upper=True, transpose=True,
                                      unitriangular=False))
+    c.update(nn_op_cases(full))
+    c.update(model_op_cases())
     return c
 
 
+# the nn ops at the flagship's width: (4096 tokens, 4096) f32 inputs,
+# softmax_ce over Llama-7B's 32000-word vocabulary
+NN_FULL = dict(rows=4096, hidden=4096, vocab=32000)
+NN_SMALL = dict(rows=6, hidden=8, vocab=10)
+# Bounds of the nn ops whose outputs or gradients are sums over thousands
+# of terms (at NN_FULL: 4096 rows, 4096 or 32000 columns), card vs CPU.
+# The two devices add the terms in another order, and each partial sum is
+# rounded at the scale of the tensor's largest elements (a weight's
+# gradient sums 4096 products of unit size: its elements reach ~300), so
+# an element that cancels to near 0 carries an absolute error on that
+# scale.  Each such op's outputs and gradients are held to
+# |card - CPU| <= OPS_RTOL |CPU| + NN_TOL[op] x max|CPU| over the tensor;
+# every other op to OPS_RTOL/OPS_ATOL.
+NN_TOL = {name: 1e-5 for name in (
+    "linear_op",                         # 4096-term dot products
+    "embedding_op",                      # the gradient sums 4096 rows
+    "layer_norm_op", "rms_norm_op",      # 4096-term statistics, and the
+    "batch_norm_train", "batch_norm_infer",   # weights' 4096-row grads
+    "group_norm_op", "instance_norm_op",  # 32768/4096-term statistics
+    "normalize_op", "softmax_op", "log_softmax_op",   # 4096-term sums
+    "softmax_ce",                        # 32000-term logsumexp
+    "prelu_op")}                         # one weight: a 16M-term gradient
+
+
+def nn_op_cases(full: bool):
+    """The nn ops of the registry (activations, norms, linear, embedding,
+    losses), at NN_FULL where ``full`` else NN_SMALL."""
+    dims = NN_FULL if full else NN_SMALL
+    n, h, vocab = dims["rows"], dims["hidden"], dims["vocab"]
+    r = np.random.RandomState(SEED + 11)
+
+    def f(*s):
+        return r.randn(*s).astype(np.float32)
+
+    def away(*s):
+        sign = np.where(r.rand(*s) > 0.5, 1.0, -1.0)
+        return (sign * (0.2 + r.rand(*s) * 2)).astype(np.float32)
+
+    c = {}
+    for name, kw in (("relu", {}), ("relu6", {}), ("hardswish", {}),
+                     ("leaky_relu_op", dict(negative_slope=0.1)),
+                     ("elu_op", dict(alpha=0.7)),
+                     ("selu_op", dict(scale=1.0507009873554805,
+                                      alpha=1.6732632423543772)),
+                     ("celu_op", dict(alpha=1.3)),
+                     ("hardsigmoid_op", dict(slope=0.1666667, offset=0.5)),
+                     ("hardtanh_op", dict(mn=-1.0, mx=1.0)),
+                     ("softshrink_op", dict(threshold=0.1)),
+                     ("hardshrink_op", dict(threshold=0.1)),
+                     ("thresholded_relu_op", dict(threshold=0.1,
+                                                  value=0.3))):
+        c[name] = ([away(n, h)], kw)          # clear of every kink
+    for name in ("silu", "mish", "softsign", "log_sigmoid", "tanhshrink"):
+        c[name] = ([f(n, h)], {})
+    c["gelu_op"] = ([f(n, h)], dict(approximate=False))
+    c["softmax_op"] = ([f(n, h)], dict(axis=-1))
+    c["log_softmax_op"] = ([f(n, h)], dict(axis=-1))
+    c["prelu_op"] = ([away(n, h), np.full((1,), 0.25, np.float32)], {})
+    c["linear_op"] = ([f(n, h), f(h, h) / math.sqrt(h), f(h)], {})
+    c["embedding_op"] = ([f(vocab, h), r.randint(0, vocab, n)],
+                         dict(padding_idx=1))
+    c["normalize_op"] = ([f(n, h)], dict(p=2.0, axis=1, epsilon=1e-12))
+    c["layer_norm_op"] = ([f(n, h), f(h), f(h)], dict(begin_axis=1,
+                                                      epsilon=1e-5))
+    c["rms_norm_op"] = ([f(n, h), f(h)], dict(epsilon=1e-6))
+    c["batch_norm_train"] = ([f(n, h), f(h), f(h)], dict(axes_key=(0,),
+                                                        epsilon=1e-5))
+    c["batch_norm_infer"] = ([f(n, h), f(h), np.abs(f(h)) + 0.5, f(h),
+                              f(h)], dict(ch_axis=1, epsilon=1e-5))
+    # (16, 256, 4096) at full width: as many elements as (4096, 4096)
+    gn, gc, groups = (16, 256, 32) if full else (2, 4, 2)
+    c["group_norm_op"] = ([f(gn, gc, h), f(gc), f(gc)],
+                          dict(groups=groups, epsilon=1e-5, nchw=True))
+    c["instance_norm_op"] = ([f(gn, gc, h), f(gc), f(gc)],
+                             dict(epsilon=1e-5))
+    c["bce_logits"] = ([f(n, h), r.rand(n, h).astype(np.float32)], {})
+    labels = r.randint(0, vocab, n).astype(np.int64)
+    labels[::7] = -100                         # ignore_index rows
+    c["softmax_ce"] = ([f(n, vocab), labels],
+                       dict(axis=-1, soft_label=False, ignore_index=-100,
+                            label_smoothing=0.1))
+    # the sequence losses stay small: their lattices are a few steps long
+    lp = np.log(r.rand(12, 3, 6).astype(np.float32) + 0.05)
+    c["ctc_loss_op"] = ([lp, np.array([[1, 2, 2], [3, 1, 5], [4, 4, 1]],
+                                      np.int32),
+                         np.array([12, 10, 9], np.int32),
+                         np.array([3, 2, 3], np.int32)], dict(blank=0))
+    c["rnnt_loss_op"] = ([f(2, 5, 3, 6), np.array([[1, 3], [2, 0]],
+                                                  np.int32),
+                          np.array([5, 4], np.int32),
+                          np.array([2, 1], np.int32)],
+                         dict(blank=0, fastemit_lambda=0.001))
+    return c
+
+
+def model_op_cases():
+    """The registry entries of the model's and the engine's plain
+    functionals (no kernel behind them), at small shapes."""
+    r = np.random.RandomState(SEED + 13)
+
+    def f(*s):
+        return r.randn(*s).astype(np.float32)
+
+    c, hh = {}, 2
+    c["sdpa"] = ([f(1, 64, hh, 16), f(1, 64, hh, 16), f(1, 64, hh, 16),
+                  None], dict(scale=0.25, is_causal=True))
+    cu = np.array([0, 20, 64], np.int32)
+    c["varlen_sdpa"] = ([f(64, hh, 16), f(64, hh, 16), f(64, hh, 16), cu,
+                         cu], dict(scale=0.25, causal=True))
+    from paddle_tpu_torch.models.llama import _rope_tables
+    cos, sin = (t.numpy() for t in _rope_tables(16, 64, 10000.0, "cpu"))
+    c["rope"] = ([f(2, 64, hh, 16), cos, sin], {})
+    c["rope_at"] = ([f(2, 8, hh, 16), cos, sin,
+                     r.randint(0, 64, (2, 8)).astype(np.int32)], {})
+    pages = (8, 4, 2, 16)
+    sp = np.array([3, 3, 5, 1], np.int32)
+    so = np.array([0, 1, 2, 3], np.int32)
+    c["paged_kv_update"] = ([f(*pages), f(*pages), f(2, 2, 2, 16),
+                             f(2, 2, 2, 16), sp, so], {})
+    c["paged_kv_copy"] = ([f(*pages), f(*pages), np.array([3, 5], np.int32),
+                           np.array([5, 7], np.int32)], {})
+    codes = r.randint(-127, 128, pages).astype(np.int8)
+    scl = (r.rand(8, 4, 2, 1) * 0.02).astype(np.float32)
+    c["paged_kv_update_quant"] = ([codes, codes.copy(), scl, scl.copy(),
+                                   f(2, 2, 2, 16), f(2, 2, 2, 16), sp, so],
+                                  {})
+    c["quant_embedding_lookup"] = ([r.randint(0, 8, (2, 5)).astype(np.int32),
+                                    codes.reshape(8, -1), scl[:, 0, 0]], {})
+    return c
+
+
+# the registry entries over hand-written kernels: held to the kernel's
+# plain version at phase 3's shapes, each launching its kernel once
+KERNEL_OPS = ("flash_sdpa", "varlen_flash", "paged_attention",
+              "paged_attention_quant", "quant_matmul")
+
+
 RANDOM_OPS = ("uniform_op", "normal_op", "randint_op", "bernoulli_op",
-              "poisson_op", "gamma_op")
+              "poisson_op", "gamma_op", "dropout_op", "alpha_dropout_op",
+              "sdpa_dropout", "varlen_sdpa_dropout")
 
 
-def run_op_case(name, args, kwargs, device):
+def run_op_case(name, args, kwargs, device, grad=False):
     """One registry op on ``args`` (numpy) as tensors on ``device``; its
-    outputs back on the CPU."""
+    outputs back on the CPU, then (``grad``) the gradients of the float
+    outputs' sum with respect to each float input."""
     from paddle_tpu_torch.ops.op import apply
     targs = [None if a is None else torch.from_numpy(
         np.ascontiguousarray(a)).to(device) for a in args]
+    leaves = [t for t in targs if grad and t is not None
+              and t.is_floating_point()]
+    for t in leaves:
+        t.requires_grad_(True)
     out = apply(name, *targs, **kwargs)
     outs = out if isinstance(out, (tuple, list)) else (out,)
-    return [o.detach().cpu() for o in outs]
+    res = [o.detach().cpu() for o in outs]
+    # a seeded random cotangent an output (the same on both devices): the
+    # plain sum's gradient vanishes for the norms and softmax, leaving
+    # only rounding noise to compare
+    g = torch.Generator().manual_seed(SEED + 5)
+    terms = [(o.double() * torch.randn(o.shape, generator=g,
+                                       dtype=torch.float64).to(o.device))
+             .sum() for o in outs
+             if o.is_floating_point() and o.requires_grad]
+    if terms:
+        sum(terms).backward()
+        res += [torch.zeros(t.shape) if t.grad is None else t.grad.cpu()
+                for t in leaves]
+    return res
 
 
 def random_op_draw(name, device):
@@ -2695,42 +2873,227 @@ def random_op_draw(name, device):
             "gamma_op": lambda: apply("gamma_op", g,
                                       torch.tensor(2.0, device=device),
                                       shape=(64, 64), dtype="float32"),
+            "dropout_op": lambda: apply("dropout_op", full(1.0), g, p=0.3,
+                                        upscale=True),
+            "alpha_dropout_op": lambda: apply("alpha_dropout_op", full(1.0),
+                                              g, p=0.3),
+            "sdpa_dropout": lambda: apply(
+                "sdpa_dropout", *[full(0.5).reshape(1, 64, 4, 16)] * 3,
+                None, g, p=0.3, scale=0.25, is_causal=False).reshape(64, 64),
+            "varlen_sdpa_dropout": lambda: apply(
+                "varlen_sdpa_dropout", *[full(0.5).reshape(64, 4, 16)] * 3,
+                *[torch.tensor([0, 30, 64], dtype=torch.int32,
+                               device=device)] * 2, g, scale=0.25,
+                causal=True, p=0.3).reshape(64, 64),
             }[name]()
+
+
+def _ops_agree(name, got, want, scale_tol=None):
+    """Card vs CPU outputs (and gradients): floats within OPS_RTOL and
+    OPS_ATOL, or (an op of NN_TOL) OPS_RTOL and ``scale_tol`` x the
+    tensor's largest magnitude; integers and bools exact; the largest
+    float difference."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError(f"op {name}: card {g.dtype} "
+                                 f"{tuple(g.shape)}, CPU {w.dtype} "
+                                 f"{tuple(w.shape)}")
+        if g.is_floating_point() or g.is_complex():
+            atol = OPS_ATOL if scale_tol is None or not w.numel() else \
+                scale_tol * w.abs().max().item()
+            if not torch.allclose(g, w, rtol=OPS_RTOL, atol=atol,
+                                  equal_nan=True):
+                raise AssertionError(f"op {name}: card and CPU differ "
+                                     f"by {(g - w).abs().max():.3e}")
+            fin = torch.isfinite(w) & torch.isfinite(g)
+            if fin.any():
+                worst = max(worst, (g - w)[fin].abs().max().item())
+        elif not torch.equal(g, w):
+            raise AssertionError(f"op {name}: card and CPU differ")
+    return worst
+
+
+def kernel_op_checks():
+    """The registry entries over hand-written kernels on CUDA tensors at
+    phase 3's shapes, each against its kernel's plain version on the same
+    inputs to phase 3's tolerance, each launching its kernel once (a
+    LAUNCH_COUNTS change of 1)."""
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda.attention import (
+        ragged_paged_attention_decode_ref)
+    from paddle_tpu_torch.ops.cuda.quant_matmul import quant_matmul_ref
+    from paddle_tpu_torch.ops.op import apply
+    bf16 = torch.bfloat16
+    t = lambda x: x.transpose(1, 2)  # noqa: E731
+
+    def launched(kernel, fn):
+        before = LAUNCH_COUNTS[kernel]
+        out = fn()
+        torch.cuda.synchronize()
+        if LAUNCH_COUNTS[kernel] != before + 1:
+            raise AssertionError(f"{kernel}: {LAUNCH_COUNTS[kernel] - before}"
+                                 f" launches by its registry entry")
+        return out
+
+    errs = {}
+    # flash_sdpa at the training shape: B=1, H=32, S=4096, D=128, bf16
+    q, k, v, _ = flash_inputs(1, 32, 32, 4096, 128, bf16, SEED + 20)
+    out, lse = launched("flash_fwd", lambda: apply(
+        "flash_sdpa", t(q), t(k), t(v), scale=128 ** -0.5, is_causal=True))
+    ro, rl = fa.flash_attention_fwd_ref(q, k, v, True)
+    errs["flash_sdpa"] = flash_compare("flash_sdpa op", t(out), ro, bf16)
+    if (lse[..., 0] - rl).abs().max() > 1e-5 * rl.abs().max() + 1e-5:
+        raise AssertionError("flash_sdpa op: lse past 1e-5")
+    # varlen_flash at the packed shape: T = 4096 in six documents
+    q, k, v, _ = (x[0] for x in flash_inputs(1, 32, 32, 4096, 128, bf16,
+                                             SEED + 21))     # (H, T, D)
+    cu = cu_of(PACKED_DOCS)
+    th = lambda x: x.transpose(0, 1)  # noqa: E731  (T, H, D) <-> (H, T, D)
+    out, _ = launched("varlen_fwd", lambda: apply(
+        "varlen_flash", th(q), th(k), th(v), cu, scale=128 ** -0.5,
+        causal=True))
+    ro, _ = fa.varlen_flash_fwd_ref(q, k, v, cu, True)
+    errs["varlen_flash"] = flash_compare("varlen_flash op", th(out), ro,
+                                         bf16)
+    # the decode ops at the serving shape, bf16 pools and int8 pools
+    q, kp, vp, bt, sl = rpa_inputs(8, 32, 32, 128, 16, 64, 2048, SERVE_LENS,
+                                   bf16, SEED + 22)
+    pos = (sl.long() - 1).clamp(min=0).to(torch.int32)[:, None]
+    got = launched("rpa_decode", lambda: apply(
+        "paged_attention", q[:, None], kp, vp, bt, sl, pos, scale=0.0,
+        kernel=True))[:, 0]
+    want = ragged_paged_attention_decode_ref(q, kp, vp, bt, sl)
+    errs["paged_attention"] = (got.float() - want.float()).abs().max().item()
+    atol, rtol = TOL[bf16]
+    if bool(((got.float() - want.float()).abs() > atol + rtol *
+             want.float().abs()).any()):
+        raise AssertionError("paged_attention op disagrees with the plain "
+                             "decode")
+    (kq, ks), (vq, vs) = quant_pools(kp.float(), vp.float())
+    got = launched("rpa_decode_quant", lambda: apply(
+        "paged_attention_quant", q[:, None], kq, vq, ks, vs, bt, sl, pos,
+        scale=0.0, kernel=True))[:, 0]
+    want = ragged_paged_attention_decode_ref(q, kq, vq, bt, sl, None, ks, vs)
+    errs["paged_attention_quant"] = (got.float() - want.float()).abs() \
+        .max().item()
+    if bool(((got.float() - want.float()).abs() > atol + rtol *
+             want.float().abs()).any()):
+        raise AssertionError("paged_attention_quant op disagrees with the "
+                             "plain decode")
+    # quant_matmul at the decode shape, int8 and int4, group 128
+    for bits in (8, 4):
+        (x, qw, sc, grp), _ = qmm_case(f"quant_matmul op int{bits}", 8,
+                                       4096, 11008, bits, 128, bf16,
+                                       SEED + 23, quiet=True)
+        got = launched(f"qmm_i{bits}", lambda: apply(
+            "quant_matmul", x, qw, sc, bits=bits, group=grp, kernel=True))
+        want = quant_matmul_ref(x, qw, sc, bits=bits, group=grp)
+        rel = ((got.float() - want.float()).norm() /
+               want.float().norm()).item()
+        if rel > QMM_REL_TOL[bf16]:
+            raise AssertionError(f"quant_matmul op int{bits}: rel L2 {rel}")
+        errs[f"quant_matmul int{bits}"] = (got.float() - want.float()) \
+            .abs().max().item()
+    return errs
+
+
+def dropout_full_width():
+    """The dropout ops at the flagship's width on the card: ``dropout_op``
+    keeps at the reference's quantised rate (1 - round(p * 256) / 256,
+    within 6 standard errors) and scales the kept values by its inverse,
+    or at exactly 1 - p with the exact mask; ``alpha_dropout_op`` keeps a
+    unit normal's mean and variance (within 0.01)."""
+    from paddle_tpu_torch.ops.op import apply
+    g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    x = torch.ones(NN_FULL["rows"], NN_FULL["hidden"], device="cuda")
+    for exact in (False, True):
+        y = apply("dropout_op", x, g, p=0.1, upscale=True, exact=exact)
+        keep = 0.9 if exact else 1 - round(0.1 * 256) / 256
+        kept = y != 0
+        rate = kept.double().mean().item()
+        se = (keep * (1 - keep) / x.numel()) ** 0.5
+        if abs(rate - keep) > 6 * se or not torch.equal(
+                y[kept], torch.full_like(y[kept], 1 / keep)):
+            raise AssertionError(f"dropout_op (exact {exact}): keep rate "
+                                 f"{rate} against {keep}")
+    a = apply("alpha_dropout_op", torch.randn(x.shape, generator=g,
+                                              device="cuda"), g, p=0.1)
+    if abs(a.mean().item()) > 0.01 or abs(a.var().item() - 1) > 0.01:
+        raise AssertionError(f"alpha_dropout_op: mean {a.mean().item()}, "
+                             f"variance {a.var().item()}")
+    log(f"  dropout_op at {tuple(x.shape)}: keep rate {rate:.6f} (exact "
+        f"mask; the quantised one checked too), alpha_dropout_op mean "
+        f"{a.mean().item():.2e} variance {a.var().item():.4f}")
 
 
 def phase_ops(card):
     """Every op of the port's registry on CUDA tensors against the same
-    call on CPU tensors: float32 within OPS_RTOL/OPS_ATOL, integer and
-    bool outputs exact; each random op's draws on the card reproduce under
-    the same seed and have the right shape and dtype."""
+    call on CPU tensors: float32 within OPS_RTOL/OPS_ATOL (an nn op that
+    sums thousands of terms within its NN_TOL), integer and bool outputs
+    exact; the nn ops at the flagship's width (NN_FULL), their gradients
+    too; each random op's draws on the card reproduce under the same seed
+    and have the right shape and dtype; the registry entries over the
+    hand-written kernels against the kernels' plain versions at phase 3's
+    shapes, each launching its kernel."""
     from paddle_tpu_torch.ops.op import all_ops
-    log("[10/10] ops: the registry on the card vs the CPU")
+    import paddle_tpu_torch.nn.functional as F
+    log("[10/11] ops: the registry on the card vs the CPU")
     t0 = time.perf_counter()
-    cases = op_cases()
+    cases = op_cases(full=True)
+    nn_names = set(nn_op_cases(False))
     names = set(all_ops())
-    if set(cases) | set(RANDOM_OPS) != names:
-        raise AssertionError(f"ops without a case: "
-                             f"{sorted(names - set(cases) - set(RANDOM_OPS))}")
-    worst = 0.0
+    covered = set(cases) | set(RANDOM_OPS) | set(KERNEL_OPS)
+    if covered != names:
+        raise AssertionError(f"ops without a case: {sorted(names - covered)}"
+                             f", cases of no op: {sorted(covered - names)}")
+    worst, nn_worst = 0.0, {}
     for name in sorted(cases):
         args, kwargs = cases[name]
-        got = run_op_case(name, args, kwargs, "cuda")
-        want = run_op_case(name, args, kwargs, "cpu")
-        for g, w in zip(got, want):
-            if g.shape != w.shape or g.dtype != w.dtype:
-                raise AssertionError(f"op {name}: card {g.dtype} "
-                                     f"{tuple(g.shape)}, CPU {w.dtype} "
-                                     f"{tuple(w.shape)}")
-            if g.is_floating_point() or g.is_complex():
-                if not torch.allclose(g, w, rtol=OPS_RTOL, atol=OPS_ATOL,
-                                      equal_nan=True):
-                    raise AssertionError(f"op {name}: card and CPU differ "
-                                         f"by {(g - w).abs().max():.3e}")
-                fin = torch.isfinite(w) & torch.isfinite(g)
-                if fin.any():
-                    worst = max(worst, (g - w)[fin].abs().max().item())
-            elif not torch.equal(g, w):
-                raise AssertionError(f"op {name}: card and CPU differ")
+        grad = name in nn_names
+        got = run_op_case(name, args, kwargs, "cuda", grad)
+        want = run_op_case(name, args, kwargs, "cpu", grad)
+        if grad:
+            # each output's and gradient's largest difference, as a
+            # fraction of its largest magnitude, then the check
+            nn_worst[name] = [
+                (g - w).abs().max().item() / max(w.abs().max().item(),
+                                                 1e-30)
+                if g.is_floating_point() and g.shape == w.shape and
+                g.numel() else 0.0 for g, w in zip(got, want)]
+            log(f"    {name}: max |card - CPU| / max |CPU|, outputs then "
+                f"grads: {['%.2e' % e for e in nn_worst[name]]}"
+                + (f" (bound OPS_RTOL + {NN_TOL[name]:g} x max)"
+                   if name in NN_TOL else ""))
+            _ops_agree(name, got, want, NN_TOL.get(name))
+        else:
+            worst = max(worst, _ops_agree(name, got, want))
+    log(f"  {len(cases) - len(nn_names)} ops agree card vs CPU (largest "
+        f"float difference {worst:.3e})")
+    log(f"  {len(nn_names)} nn ops at {NN_FULL} (forward and gradients) "
+        f"agree card vs CPU")
+    # cross_entropy at (4096, 32000) with class weights, ignore_index rows
+    # and label smoothing, forward and backward, card vs CPU
+    r = np.random.RandomState(SEED + 12)
+    logits = r.randn(NN_FULL["rows"], NN_FULL["vocab"]).astype(np.float32)
+    labels = r.randint(0, NN_FULL["vocab"], NN_FULL["rows"])
+    labels[::7] = -100
+    weight = (r.rand(NN_FULL["vocab"]) + 0.5).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.from_numpy(logits).to(dev).requires_grad_(True)
+        loss = F.cross_entropy(x, torch.from_numpy(labels).to(dev),
+                               weight=torch.from_numpy(weight).to(dev),
+                               label_smoothing=0.1)
+        loss.backward()
+        res[dev] = [loss.detach().cpu(), x.grad.cpu()]
+    err = _ops_agree("cross_entropy(weight, ignore_index, label_smoothing)",
+                     res["cuda"], res["cpu"], NN_TOL["softmax_ce"])
+    log(f"  cross_entropy at (4096, 32000), weight + ignore_index + "
+        f"smoothing 0.1: loss {res['cuda'][0].item():.6f}, card vs CPU "
+        f"(loss and grad) {err:.3e}")
+    dropout_full_width()
     for name in RANDOM_OPS:
         a, b = random_op_draw(name, "cuda"), random_op_draw(name, "cuda")
         if a.shape != (64, 64) or a.device.type != "cuda" or \
@@ -2738,9 +3101,185 @@ def phase_ops(card):
             raise AssertionError(f"random op {name}: {a.dtype} "
                                  f"{tuple(a.shape)} on {a.device}, "
                                  f"reproducible {torch.equal(a, b)}")
-    log(f"  {len(cases)} ops agree card vs CPU (largest float difference "
-        f"{worst:.3e}); {len(RANDOM_OPS)} random ops reproduce under their "
-        f"generator's seed; {time.perf_counter() - t0:.1f} s")
+    errs = kernel_op_checks()
+    log(f"  {len(KERNEL_OPS)} kernel entries at phase 3's shapes, each one "
+        f"launch of its kernel, max abs err vs the plain version: "
+        + ", ".join(f"{n} {e:.3e}" for n, e in errs.items()))
+    log(f"  {len(RANDOM_OPS)} random ops reproduce under their generator's "
+        f"seed; {time.perf_counter() - t0:.1f} s")
+
+
+# -- phase 11: the nn surface and checkpoints -------------------------------------
+
+# the model built only from the nn surface, at Llama-7B's MLP width, and its
+# batch: (8, 512, 4096) f32
+NN_MODEL_BATCH = (8, 512, 4096)
+# card vs CPU, the nn-surface model's first step with dropout off: the
+# loss within 1e-4 relative, every gradient within 1e-4 relative L2 (f32
+# matmuls in full f32 on both sides, summed in another order)
+NN_PARITY_RTOL = 1e-4
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's bytes as int16 words (bf16 and f16) or as itself."""
+    return t.view(torch.int16) if t.element_size() == 2 else t
+
+
+def flagship_round_trip(card):
+    """(a) Llama-7B (32 layers, bf16) saved with ``paddle_tpu_torch.save``
+    in the reference's checkpoint format, loaded with ``load`` into a
+    second Llama-7B built from another seed after the first is freed:
+    every tensor bitwise equal, phase 4's prompts give the same greedy
+    tokens and the same first-decode-step logits, bitwise."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
+                                               llama_7b_config)
+    from paddle_tpu_torch.serving.engine import ServingEngine
+    cfg = llama_7b_config()
+    prompts = serve_prompts(SEED, cfg.vocab_size)
+    cmp_prompts = compare_prompts(cfg.vocab_size)
+
+    def serve(model):
+        engine = ServingEngine(model, num_blocks=2048, **SERVE_KW)
+        logits = first_decode_logits(engine, cmp_prompts, 4)
+        tokens = engine.generate(prompts, max_new_tokens=8)
+        del engine
+        return logits, tokens
+
+    model = LlamaForCausalLM(cfg, seed=SEED)
+    logits, tokens = serve(model)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in model.state_dict().values())
+    with tempfile.TemporaryDirectory() as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * nbytes:
+            raise RuntimeError(f"the temporary directory {tmp} has "
+                               f"{free / 1e9:.2f} GB free; the round trip "
+                               f"needs twice the checkpoint's "
+                               f"{nbytes / 1e9:.2f} GB")
+        path = str(Path(tmp) / "llama7b.pdparams")
+        t0 = time.perf_counter()
+        P.save(model.state_dict(), path)
+        save_s = time.perf_counter() - t0
+        file_gb = Path(path).stat().st_size / 1e9
+        host = {k: _bits(v.detach()).cpu()
+                for k, v in model.state_dict().items()}
+        probe = model.llama.embed_tokens.weight[:4].detach().clone()
+        del model
+        free_cuda()
+        second = LlamaForCausalLM(cfg, seed=SEED + 1)
+        if torch.equal(second.llama.embed_tokens.weight[:4], probe):
+            raise AssertionError("the second model starts with the first's "
+                                 "weights")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loaded = P.load(path)
+        missing, unexpected = second.set_state_dict(loaded)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del loaded
+    if missing or unexpected:
+        raise AssertionError(f"missing {missing}, unexpected {unexpected}")
+    bad = [k for k, v in second.state_dict().items()
+           if not torch.equal(_bits(v.detach()).cpu(), host[k])]
+    if bad or len(host) != len(second.state_dict()):
+        raise AssertionError(f"{len(bad)} tensors differ after the round "
+                             f"trip: {bad[:4]}")
+    logits2, tokens2 = serve(second)
+    same_logits = torch.equal(logits, logits2)
+    log(f"  [{card}] Llama-7B round trip: {len(host)} tensors, "
+        f"{nbytes / 1e9:.3f} GB, file {file_gb:.3f} GB; save "
+        f"{save_s:.2f} s, load + set_state_dict {load_s:.2f} s; every "
+        f"tensor bitwise equal; greedy tokens of phase 4's "
+        f"{len(prompts)} prompts equal {tokens2 == tokens}; first decode "
+        f"step logits bitwise equal {same_logits}")
+    if tokens2 != tokens or not same_logits:
+        raise AssertionError("the loaded model serves differently")
+    del second, host
+    free_cuda()
+    return {"save_s": save_s, "load_s": load_s, "file_gb": file_gb}
+
+
+def nn_surface_model(device, seed):
+    from paddle_tpu_torch import nn
+    g = torch.Generator(device=device).manual_seed(seed)
+    h, inter = NN_MODEL_BATCH[2], 11008
+    kw = dict(device=device, generator=g)
+    return nn.Sequential(nn.Linear(h, inter, **kw), nn.GELU(),
+                         nn.Dropout(0.1), nn.Linear(inter, h, **kw),
+                         nn.LayerNorm(h, **kw))
+
+
+def nn_surface_training(card):
+    """(b) A model built only from the nn surface at Llama-7B's MLP width
+    takes 3 AdamW steps with ``clip_grad_norm_(1.0)`` on (8, 512, 4096)
+    f32 inputs: losses finite and falling; with dropout off, the card's
+    first-step loss and gradients equal the CPU's within NN_PARITY_RTOL."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    g = torch.Generator().manual_seed(SEED + 3)
+    x = torch.randn(NN_MODEL_BATCH, generator=g)
+    target = torch.randn(NN_MODEL_BATCH, generator=g)
+    model = nn_surface_model("cuda", SEED)
+    cpu_model = nn_surface_model("cpu", SEED + 1)
+    cpu_model.set_state_dict(model.state_dict())
+    grads = {}
+    for name, m in (("card", model), ("cpu", cpu_model)):
+        m.eval()
+        dev = next(iter(m.parameters())).device
+        loss = F.mse_loss(m(x.to(dev)), target.to(dev))
+        loss.backward()
+        grads[name] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                     m.named_parameters()})
+        m.clear_gradients()
+    loss_rel = abs(grads["card"][0] - grads["cpu"][0]) / abs(grads["cpu"][0])
+    grad_rel = max(((grads["card"][1][n] - w).norm() / w.norm()).item()
+                   for n, w in grads["cpu"][1].items())
+    del cpu_model
+    model.train()
+    opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
+                weight_decay=0.01)
+    xs, ts = x.cuda(), target.cuda()
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        loss = F.mse_loss(model(xs), ts)
+        loss.backward()
+        norms.append(nn.clip_grad_norm_(model.parameters(), 1.0).item())
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.item())
+    step_s = (time.perf_counter() - t0) / 3
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  [{card}] nn-surface model (Sequential: Linear 4096x11008, GELU, "
+        f"Dropout 0.1, Linear 11008x4096, LayerNorm; {n_params / 1e6:.1f} M "
+        f"parameters) on {NN_MODEL_BATCH} f32: dropout off, card vs CPU "
+        f"first-step loss {loss_rel:.3e}, gradients {grad_rel:.3e} (tol "
+        f"{NN_PARITY_RTOL}); 3 AdamW steps with clip_grad_norm_(1.0): "
+        f"losses {losses}, gradient norms before the clip {norms}, "
+        f"{step_s * 1e3:.1f} ms a step")
+    if not (loss_rel <= NN_PARITY_RTOL and grad_rel <= NN_PARITY_RTOL):
+        raise AssertionError("the nn-surface model's card and CPU steps "
+                             "differ")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"nn-surface losses not finite and falling: "
+                             f"{losses}")
+    del model, opt
+    free_cuda()
+
+
+def phase_nn(card):
+    log("[11/11] nn surface and checkpoints, at full width")
+    t0 = time.perf_counter()
+    out = flagship_round_trip(card)
+    nn_surface_training(card)
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -2751,7 +3290,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/10] device")
+    log("[1/11] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -2762,7 +3301,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/10] build")
+    log("[2/11] build")
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -2770,7 +3309,7 @@ def main() -> int:
     for kname, info in built.items():
         build_report(kname, info)
 
-    log("[3/10] kernel vs plain version")
+    log("[3/11] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
         phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw) + \
         [phase_fused_update(card, bw)]
@@ -2786,6 +3325,7 @@ def main() -> int:
     launches.update(phase_quant_serve(card))
     phase_profiles(card)
     phase_ops(card)
+    phase_nn(card)
     # on the captured paths: each graph's launches a replay (checked
     # against the profiler in phase 9) times its replays
     launched_in = {"rpa_decode": "captured serve (phase 4)",

@@ -8,11 +8,16 @@ captured), and the op surface:
   flags.py           — the serving flags (same names and defaults)
   core/place.py      — device resolution (CUDA unless the caller asks for
                        the CPU)
-  nn/                — silu, rms_norm, linear, embedding, attention
+  nn/                — Layer (a torch.nn.Module with Paddle's surface),
+                       initializers, containers, the activation, common,
+                       norm and loss functionals and layers, attention
                        (flash_sdpa over the flash kernels; plain sdpa for
-                       masks and dropout), cross_entropy; Linear,
-                       Embedding, RMSNorm with Paddle's (in, out) weight
-                       layout; gradient clips
+                       masks and dropout), nn.utils, gradient clips;
+                       Paddle's (in, out) weight layout
+  distributed/fleet/ — the single-device Column/RowParallelLinear and
+                       VocabParallelEmbedding the Llama builds
+  framework/         — save/load in the reference's checkpoint format
+                       (paddle_tpu_torch.save / load)
   models/llama.py    — Llama with the paged-KV serving forward and the
                        full-sequence training forward, compute_loss
   optimizer/         — SGD, Adam, AdamW (in place, one fused kernel launch
@@ -53,6 +58,10 @@ from . import tensor  # noqa: F401  (the op surface)
 from .tensor import *  # noqa: F401,F403
 from .tensor.logic import is_tensor  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401,E402
+from . import nn  # noqa: F401,E402
+from .framework.io_utils import load, save  # noqa: F401,E402
+# the modules that register the rest of the reference's registry ops
+from . import models, quantize, serving  # noqa: F401,E402
 
 import torch as _torch  # noqa: E402
 

@@ -128,3 +128,8 @@ define_flag("retrace_warn_threshold", 8,
             "signature) has been captured this many times — the recapture "
             "tripwire (jit/compile_cache.py note_trace). 0 disables the "
             "warning.")
+define_flag("exact_dropout_mask", False,
+            "Force exact Bernoulli(p) dropout masks instead of the "
+            "1/256-quantised fast u8 masks (nn/functional/common.py "
+            "fast_keep_mask) for parity-sensitive comparisons against "
+            "the reference framework.")

@@ -1,17 +1,21 @@
 """Llama (counterpart of ``paddle_tpu/models/llama.py``).
 
-Single-device form of the reference model: the q/k/v/gate/up/o/down
-projections are plain :class:`Linear` layers with Paddle's ``(in, out)``
-weights, so parameter names and shapes match the reference's
-``named_parameters()`` 1:1 (``load_reference_arrays`` carries weights
-across).  Two attention paths: the serving path (RoPE at explicit absolute
-positions, K/V written into the paged pool, attention through the block
-tables) and the full-sequence causal path of training and whole-sequence
-forwards, through ``F.scaled_dot_product_attention`` and so the flash
-kernels.  Training is eager: ``loss = model.compute_loss(model(ids),
-labels)``, ``loss.backward()``, then the optimizer (``optimizer/``).
-Gradients through ``rope_at`` come from autograd (the reference writes
-``_rope_vjp`` by hand; the tests hold the two to each other).
+Built as the reference builds it: every class a ``Layer``, the q/k/v/
+gate/up projections ``ColumnParallelLinear``, o/down
+``RowParallelLinear``, the embedding ``VocabParallelEmbedding`` (one
+device: ``distributed/fleet/meta_parallel/mp_layers.py``, XavierNormal),
+with Paddle's ``(in, out)`` weights, so ``state_dict()`` has the
+reference's keys in the reference's order and ``load_reference_arrays``
+(a ``set_state_dict``) carries weights across.  Two attention paths: the
+serving path (RoPE at explicit absolute positions, K/V written into the
+paged pool, attention through the block tables) and the full-sequence
+causal path of training and whole-sequence forwards, through
+``F.scaled_dot_product_attention`` and so the flash kernels.  Training is
+eager: ``loss = model.compute_loss(model(ids), labels)``,
+``loss.backward()``, then the optimizer (``optimizer/``).  Gradients
+through ``rope_at`` come from autograd (the reference writes
+``_rope_vjp`` by hand; the tests hold the two to each other).  The
+reference's registry ops ``rope`` and ``rope_at`` are registered here.
 
 RoPE rotates INTERLEAVED pairs ``(x[..., 0::2], x[..., 1::2])``, exactly as
 the reference's ``_rope_fwd``/``_rope_at_fwd`` do.
@@ -20,16 +24,18 @@ the reference's ``_rope_fwd``/``_rope_at_fwd`` do.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List
+from typing import Dict
 
 import numpy as np
 import torch
-from torch import nn
 
-from ..core.dtype import to_torch_dtype
 from ..core.place import resolve_device
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 from ..nn import functional as F
-from ..nn.layer import Embedding, Linear, RMSNorm
+from ..nn.layer import LayerList, RMSNorm
+from ..nn.layer.layers import Layer
+from ..ops.op import register_op
 
 __all__ = ["LlamaConfig", "LlamaForCausalLM", "LlamaModel",
            "LlamaDecoderLayer", "LlamaAttention", "LlamaMLP",
@@ -76,40 +82,60 @@ def _rope_tables(head_dim: int, max_len: int, theta: float, device):
     return torch.cos(freqs), torch.sin(freqs)
 
 
-def rope_at(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
-            positions: torch.Tensor) -> torch.Tensor:
-    """RoPE at explicit absolute positions, in f32, cast back.
-    x: (B, S, H, D); positions: (B, S) integer."""
+def _rotate(x, c, s):
     xf = x.float()
     x1 = xf[..., 0::2]
     x2 = xf[..., 1::2]
-    c = cos[positions][:, :, None, :]                 # (B, S, 1, D/2)
-    s = sin[positions][:, :, None, :]
     r1 = x1 * c - x2 * s
     r2 = x2 * c + x1 * s
     return torch.stack([r1, r2], dim=-1).reshape(xf.shape).to(x.dtype)
 
 
-class LlamaAttention(nn.Module):
+def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
+         ) -> torch.Tensor:
+    """RoPE at positions 0..S-1, in f32, cast back.  x: (B, S, H, D);
+    cos/sin: (S, D/2)."""
+    return _rotate(x, cos[None, :, None, :], sin[None, :, None, :])
+
+
+def rope_at(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+            positions: torch.Tensor) -> torch.Tensor:
+    """RoPE at explicit absolute positions, in f32, cast back.
+    x: (B, S, H, D); positions: (B, S) integer."""
+    return _rotate(x, cos[positions][:, :, None, :],       # (B, S, 1, D/2)
+                   sin[positions][:, :, None, :])
+
+
+register_op("rope", rope, "norm_layer")
+register_op("rope_at", rope_at, "norm_layer")
+
+
+def _kw(config: LlamaConfig, device, generator) -> dict:
+    return dict(dtype=config.dtype, device=device, generator=generator)
+
+
+class LlamaAttention(Layer):
     def __init__(self, config: LlamaConfig, device, generator) -> None:
-        super().__init__()
+        super().__init__(dtype=config.dtype)
         self.config = config
         h = config.hidden_size
-        dt = to_torch_dtype(config.dtype)
         self.num_heads = config.num_attention_heads
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.head_dim
         kv_out = self.num_kv_heads * self.head_dim
-        kw = dict(bias=False, dtype=dt, device=device, generator=generator)
-        self.q_proj = Linear(h, h, **kw)
-        self.k_proj = Linear(h, kv_out, **kw)
-        self.v_proj = Linear(h, kv_out, **kw)
-        self.o_proj = Linear(h, h, **kw)
+        col = dict(has_bias=False, gather_output=False,
+                   **_kw(config, device, generator))
+        self.q_proj = ColumnParallelLinear(h, h, **col)
+        self.k_proj = ColumnParallelLinear(h, kv_out, **col)
+        self.v_proj = ColumnParallelLinear(h, kv_out, **col)
+        self.o_proj = RowParallelLinear(h, h, has_bias=False,
+                                        input_is_parallel=True,
+                                        **_kw(config, device, generator))
         cos, sin = _rope_tables(self.head_dim,
                                 config.max_position_embeddings,
                                 config.rope_theta, device)
-        self.register_buffer("_cos", cos, persistent=False)
-        self.register_buffer("_sin", sin, persistent=False)
+        self.register_buffer("_cos", cos, persistable=False)
+        self.register_buffer("_sin", sin, persistable=False)
 
     def forward(self, hidden, attn_mask=None, cache=None, positions=None):
         b, s = hidden.shape[0], hidden.shape[1]
@@ -137,31 +163,33 @@ class LlamaAttention(nn.Module):
         return self.o_proj(out.reshape(b, s, self.num_heads * self.head_dim))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig, device, generator) -> None:
-        super().__init__()
+        super().__init__(dtype=config.dtype)
         h, inter = config.hidden_size, config.intermediate_size
-        kw = dict(bias=False, dtype=to_torch_dtype(config.dtype),
-                  device=device, generator=generator)
-        self.gate_proj = Linear(h, inter, **kw)
-        self.up_proj = Linear(h, inter, **kw)
-        self.down_proj = Linear(inter, h, **kw)
+        col = dict(has_bias=False, gather_output=False,
+                   **_kw(config, device, generator))
+        self.gate_proj = ColumnParallelLinear(h, inter, **col)
+        self.up_proj = ColumnParallelLinear(h, inter, **col)
+        self.down_proj = RowParallelLinear(inter, h, has_bias=False,
+                                           input_is_parallel=True,
+                                           **_kw(config, device, generator))
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     def __init__(self, config: LlamaConfig, device, generator) -> None:
-        super().__init__()
-        dt = to_torch_dtype(config.dtype)
+        super().__init__(dtype=config.dtype)
         self.input_layernorm = RMSNorm(config.hidden_size,
-                                       config.rms_norm_eps, dtype=dt,
-                                       device=device)
+                                       config.rms_norm_eps,
+                                       dtype=config.dtype, device=device)
         self.self_attn = LlamaAttention(config, device, generator)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 config.rms_norm_eps,
-                                                dtype=dt, device=device)
+                                                dtype=config.dtype,
+                                                device=device)
         self.mlp = LlamaMLP(config, device, generator)
 
     def forward(self, hidden, attn_mask=None, cache=None, positions=None):
@@ -175,19 +203,18 @@ class LlamaDecoderLayer(nn.Module):
         return residual + self.mlp(hidden)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     def __init__(self, config: LlamaConfig, device, generator) -> None:
-        super().__init__()
+        super().__init__(dtype=config.dtype)
         self.config = config
-        dt = to_torch_dtype(config.dtype)
-        self.embed_tokens = Embedding(config.vocab_size, config.hidden_size,
-                                      dtype=dt, device=device,
-                                      generator=generator)
-        self.layers = nn.ModuleList(
+        self.embed_tokens = VocabParallelEmbedding(
+            config.vocab_size, config.hidden_size,
+            **_kw(config, device, generator))
+        self.layers = LayerList(
             [LlamaDecoderLayer(config, device, generator)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, config.rms_norm_eps,
-                            dtype=dt, device=device)
+                            dtype=config.dtype, device=device)
 
     def forward(self, input_ids, attn_mask=None, caches=None,
                 positions=None):
@@ -198,23 +225,23 @@ class LlamaModel(nn.Module):
         return self.norm(hidden)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """``device=None`` builds on the card (raising when there is none);
     pass ``device="cpu"`` for the CPU.  Weights are drawn on the target
     device from a ``torch.Generator`` seeded with ``seed``."""
 
     def __init__(self, config: LlamaConfig, device=None, seed: int = 0
                  ) -> None:
-        super().__init__()
+        super().__init__(dtype=config.dtype)
         device = resolve_device(device)
         gen = torch.Generator(device=device)
         gen.manual_seed(int(seed))
         self.config = config
         self.llama = LlamaModel(config, device, gen)
-        self.lm_head = None if config.tie_word_embeddings else Linear(
-            config.hidden_size, config.vocab_size, bias=False,
-            dtype=to_torch_dtype(config.dtype), device=device,
-            generator=gen)
+        self.lm_head = None if config.tie_word_embeddings else \
+            ColumnParallelLinear(config.hidden_size, config.vocab_size,
+                                 has_bias=False, gather_output=True,
+                                 **_kw(config, device, gen))
         self._serving_engine = None
 
     def forward(self, input_ids: torch.Tensor, attn_mask=None
@@ -273,24 +300,13 @@ def load_reference_arrays(model: LlamaForCausalLM,
                           arrays: Dict[str, np.ndarray]) -> None:
     """Load the reference model's parameters, as numpy arrays keyed by the
     reference's names (``llama.layers.0.self_attn.q_proj.weight``, ...,
-    ``lm_head.weight``), into ``model``, cast to each parameter's dtype.
-    Raises on a missing name, an unexpected name or a shape mismatch; loads
-    nothing unless every array fits."""
-    params = dict(model.named_parameters())
-    missing = sorted(set(params) - set(arrays))
-    unexpected = sorted(set(arrays) - set(params))
+    ``lm_head.weight``), into ``model`` (``set_state_dict``, cast to each
+    parameter's dtype).  Raises on a missing name, an unexpected name or a
+    shape mismatch; loads nothing unless every array fits."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(arrays))
+    unexpected = sorted(set(arrays) - set(own))
     if missing or unexpected:
         raise KeyError(f"reference arrays do not match the model: missing "
                        f"{missing}, unexpected {unexpected}")
-    bad: List[str] = [
-        f"{n}: reference {tuple(np.shape(a))} vs model "
-        f"{tuple(params[n].shape)}"
-        for n, a in arrays.items() if tuple(np.shape(a)) != tuple(
-            params[n].shape)]
-    if bad:
-        raise ValueError("shape mismatch: " + "; ".join(bad))
-    with torch.no_grad():
-        for name, a in arrays.items():
-            p = params[name]
-            p.copy_(torch.from_numpy(np.array(a, np.float32))
-                    .to(dtype=p.dtype, device=p.device))
+    model.set_state_dict(arrays)

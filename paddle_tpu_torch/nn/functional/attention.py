@@ -46,6 +46,7 @@ from ...ops.cuda.flash_attention import (flash_attention_bwd,
                                          flash_attention_fwd, flash_refusal,
                                          padded_head_dim, segment_ids,
                                          varlen_flash_bwd, varlen_flash_fwd)
+from ...ops.op import register_op
 
 __all__ = ["scaled_dot_product_attention", "flash_sdpa", "sdpa",
            "flash_attention", "flash_attn_unpadded", "sdp_kernel",
@@ -122,7 +123,11 @@ def sdpa(query, key, value, attn_mask=None, scale: Optional[float] = None,
         keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
         probs = torch.where(keep, probs, torch.zeros_like(probs)) / \
             (1.0 - dropout_p)
-    h, hkv = query.shape[2], value.shape[2]
+    return _apply_v(probs, value)
+
+
+def _apply_v(probs, value):
+    h, hkv = probs.shape[1], value.shape[2]
     if hkv != h:
         value = value.repeat_interleave(h // hkv, dim=2)
     return torch.einsum("bhqk,bkhd->bqhd", probs, value)
@@ -210,16 +215,16 @@ def flash_attention(query, key, value, dropout=0.0, causal=False,
 
 
 def _varlen_core(q, k, v, cu_q, cu_k, scale: float, causal: bool,
-                 dropout_p: float = 0.0) -> torch.Tensor:
+                 dropout_p: float = 0.0, generator=None) -> torch.Tensor:
     """Plain dense attention over packed tokens (the reference's
     ``varlen_sdpa`` and ``varlen_sdpa_dropout`` ops): q (Tq, H, D), k/v
     (Tk, Hkv, D).  A query sees the keys of its own segment (segment ids
     from ``cu_q`` and ``cu_k``), at or before its own position inside the
     segment when causal; logits in the input type, then an f32 softmax;
     rows with no visible key give 0.  With ``dropout_p`` the probabilities
-    are dropped with ``torch.rand`` (torch's generator: compare with the
-    reference statistically, never draw for draw) and rescaled by
-    1 / (1 - p).  Differentiated by autograd."""
+    are dropped with ``torch.rand`` (from ``generator``, torch's default
+    when None: compare with the reference statistically, never draw for
+    draw) and rescaled by 1 / (1 - p).  Differentiated by autograd."""
     h, hkv = q.shape[1], k.shape[1]
     if hkv != h:
         k = k.repeat_interleave(h // hkv, dim=1)
@@ -241,7 +246,8 @@ def _varlen_core(q, k, v, cu_q, cu_k, scale: float, causal: bool,
     probs = torch.where(mask.any(-1, keepdim=True), probs,
                         torch.zeros_like(probs))
     if dropout_p > 0.0:
-        keep = torch.rand(probs.shape, device=probs.device) >= dropout_p
+        keep = torch.rand(probs.shape, device=probs.device,
+                          generator=generator) >= dropout_p
         probs = torch.where(keep, probs / (1.0 - dropout_p),
                             torch.zeros_like(probs))
     return torch.einsum("hqk,khd->qhd", probs.to(q.dtype), v)
@@ -330,3 +336,44 @@ class sdp_kernel:
 
     def __exit__(self, *exc):
         return False
+
+
+# -- the reference's registry ops over these functionals --------------------
+# On CUDA tensors flash_sdpa and varlen_flash launch the flash kernels
+# (flash_fwd, varlen_fwd; their backward flash_dq/flash_dkv, varlen_dq/
+# varlen_dkv), as the model's attention does.  lse comes back with the
+# reference's trailing axis of 1.
+
+def _flash_sdpa_op(q, k, v, *, scale, is_causal):
+    out, lse = flash_sdpa(q, k, v, scale, is_causal)
+    return out, lse.unsqueeze(-1)
+
+
+def _sdpa_dropout_op(q, k, v, mask, generator, *, p, scale, is_causal):
+    """``sdpa`` with the probabilities dropped by the reference's mask
+    (``fast_keep_mask``: p quantised to 1/256 unless exact) drawn from
+    ``generator``."""
+    from .common import fast_keep_mask
+    probs = _sdpa_probs(q, k, mask, scale, is_causal)
+    keep, keep_p = fast_keep_mask(generator, p, probs.shape, probs.device)
+    probs = torch.where(keep, probs, torch.zeros_like(probs)) / \
+        torch.tensor(keep_p, dtype=probs.dtype)
+    return _apply_v(probs, v)
+
+
+def _varlen_flash_op(q, k, v, cu, *, scale, causal):
+    out, lse = _FlashVarlen.apply(q, k, v, cu, float(scale), bool(causal))
+    return out, lse.unsqueeze(-1)
+
+
+register_op("flash_sdpa", _flash_sdpa_op, "attention")
+register_op("sdpa", lambda q, k, v, mask, *, scale, is_causal: sdpa(
+    q, k, v, mask, scale, is_causal), "attention")
+register_op("sdpa_dropout", _sdpa_dropout_op, "attention")
+register_op("varlen_flash", _varlen_flash_op, "attention")
+register_op("varlen_sdpa", lambda q, k, v, cu_q, cu_k, *, scale, causal:
+            _varlen_core(q, k, v, cu_q, cu_k, scale, causal), "attention")
+register_op("varlen_sdpa_dropout",
+            lambda q, k, v, cu_q, cu_k, generator, *, scale, causal, p:
+            _varlen_core(q, k, v, cu_q, cu_k, scale, causal, p, generator),
+            "attention")

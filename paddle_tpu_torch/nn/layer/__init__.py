@@ -1,2 +1,6 @@
-from .common import Embedding, Linear  # noqa: F401
-from .norm import RMSNorm  # noqa: F401
+from .layers import Layer  # noqa: F401
+from .common import *  # noqa: F401,F403
+from .norm import *  # noqa: F401,F403
+from .activation import *  # noqa: F401,F403
+from .container import *  # noqa: F401,F403
+from .loss import *  # noqa: F401,F403

@@ -34,6 +34,7 @@ from typing import Dict, Tuple
 import torch
 
 from ...flags import get_flags
+from ..op import register_op
 from . import _build
 from .attention import _DTYPE_CODES, LAUNCH_COUNTS
 
@@ -228,3 +229,14 @@ def quant_matmul(x, qw, scales, *, bits: int, group: int):
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     return _launch(x, qw, scales, bits, group)
+
+
+def _quant_matmul_op(x, qw, scales, *, bits: int, group: int, kernel: bool):
+    """The reference's registry op: ``kernel`` (decided when the layer is
+    built) takes ``quant_matmul`` (the CUDA kernels on CUDA tensors), else
+    the plain version."""
+    fn = quant_matmul if kernel else quant_matmul_ref
+    return fn(x, qw, scales, bits=int(bits), group=int(group))
+
+
+register_op("quant_matmul", _quant_matmul_op)

@@ -2,10 +2,12 @@
 (counterpart of ``paddle_tpu/quantize/layers.py``, single-device form).
 
 :func:`quantize_for_inference` walks a built model and swaps every
-:class:`~paddle_tpu_torch.nn.layer.Linear` for a :class:`QuantizedLinear`
+``Linear`` (``nn.Linear``, and the single-device ``ColumnParallelLinear``
+and ``RowParallelLinear`` the Llama builds) for a :class:`QuantizedLinear`
 holding int8 or nibble-packed int4 codes plus per-(group, out-column) f32
-scales, and every :class:`~paddle_tpu_torch.nn.layer.Embedding` for an
-int8 :class:`QuantizedEmbedding` with one scale per row.  Quantization
+scales, and every ``Embedding`` (``nn.Embedding``,
+``VocabParallelEmbedding``) for an int8 :class:`QuantizedEmbedding` with
+one scale per row.  Quantization
 runs on the weight's own device, one layer at a time, and the original
 weight is dropped as its layer swaps, so a model on the card never holds
 two full copies.  The packed codes keep the name ``weight`` and the scales
@@ -17,8 +19,7 @@ Scale selection reads ``paddle_tpu.numerics.calibration/1`` dumps
 own max; ``percentile[:p]`` clips each weight at the dump's percentile
 first.
 
-The sharded twins (Column-/Row-/VocabParallel) come with the tensor-
-parallel slice; the port's Llama builds plain Linear and Embedding.
+The sharded quantized twins come with the tensor-parallel slice (A7).
 """
 
 from __future__ import annotations
@@ -29,8 +30,11 @@ from typing import Dict, Optional, Sequence
 import torch
 from torch import nn
 
+from ..distributed.fleet.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 from ..flags import get_flags
 from ..nn.layer.common import Embedding, Linear
+from ..ops.op import register_op
 from ..ops.cuda.quant_matmul import (quant_matmul, quant_matmul_ref,
                                      use_quant_kernel)
 from . import calibration as _calib
@@ -46,6 +50,14 @@ def quant_embedding_lookup(ids: torch.Tensor, q: torch.Tensor,
     gather: f32 ``ids.shape + (dim,)``."""
     idx = ids.long()
     return q[idx].to(torch.float32) * scales[idx]
+
+
+register_op("quant_embedding_lookup", quant_embedding_lookup)
+
+# what quantize_for_inference swaps: the plain layers and their
+# single-device parallel twins (the Llama builds the latter)
+_LINEARS = (Linear, ColumnParallelLinear, RowParallelLinear)
+_EMBEDDINGS = (Embedding, VocabParallelEmbedding)
 
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
@@ -152,7 +164,7 @@ def quantize_for_inference(model: nn.Module, calibration=None, bits: int = 8,
     entries = (payload or {}).get("params", {})
     group = int(group or get_flags("weight_quant_group"))
     if kernel is None:
-        kernel = use_quant_kernel(next(model.parameters()).device)
+        kernel = use_quant_kernel(next(iter(model.parameters())).device)
     tied = bool(getattr(getattr(model, "config", None),
                         "tie_word_embeddings", False))
     report: Dict = {"bits": int(bits), "group": group,
@@ -172,18 +184,18 @@ def quantize_for_inference(model: nn.Module, calibration=None, bits: int = 8,
             if isinstance(child, (QuantizedLinear, QuantizedEmbedding)):
                 continue
             if any(s and s in path for s in skip):
-                if isinstance(child, (Linear, Embedding)):
+                if isinstance(child, _LINEARS + _EMBEDDINGS):
                     report["skipped"].append(
                         {"layer": path, "reason": "skip= pattern"})
                 continue
-            if isinstance(child, Linear):
+            if isinstance(child, _LINEARS):
                 w = child.weight.detach().to(torch.float32)
                 qlayer = QuantizedLinear(child, bits, group, _clip(path),
                                          kernel)
                 back = _core.dequantize_weight(
                     qlayer.weight, qlayer.weight_scale, qlayer._bits,
                     qlayer._group, w.shape[0])
-            elif isinstance(child, Embedding):
+            elif isinstance(child, _EMBEDDINGS):
                 if not quantize_embeddings:
                     continue
                 if tied:

@@ -33,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from ..flags import get_flags
+from ..ops.op import register_op
 from ..ops.cuda.attention import ragged_paged_attention_decode
 from ..quantize.core import quantize_kv_rows
 
@@ -165,3 +166,47 @@ class PagedCacheView:
         return paged_attention_torch(q, self.k_pages, self.v_pages, self._bt,
                                      self._sl, self._qp, self._scale,
                                      self.k_scales, self.v_scales)
+
+
+# -- the reference's registry ops ---------------------------------------------
+# The paged-KV writes update the pools in place and return them (the
+# reference returns new pools with the same values); on CUDA tensors the
+# decode ops with kernel=True launch rpa_decode / rpa_decode_quant, as the
+# engine's decode step does.
+
+def _paged_kv_update_op(k_pages, v_pages, k_new, v_new, slot_pages,
+                        slot_offsets):
+    paged_kv_update(k_pages, v_pages, k_new, v_new, slot_pages,
+                    slot_offsets)
+    return k_pages, v_pages
+
+
+def _paged_kv_update_quant_op(k_pages, v_pages, k_scales, v_scales, k_new,
+                              v_new, slot_pages, slot_offsets):
+    paged_kv_update_quant(k_pages, v_pages, k_scales, v_scales, k_new,
+                          v_new, slot_pages, slot_offsets)
+    return k_pages, v_pages, k_scales, v_scales
+
+
+def _paged_kv_copy_op(k_pages, v_pages, src_pages, dst_pages):
+    paged_kv_copy(k_pages, v_pages, src_pages, dst_pages)
+    return k_pages, v_pages
+
+
+def _paged_attention_op(q, k_pages, v_pages, block_tables, seq_lens, q_pos,
+                        *, scale, kernel, k_scales=None, v_scales=None):
+    return PagedCacheView(k_pages, v_pages, block_tables, seq_lens, None,
+                          None, q_pos, scale, kernel, k_scales,
+                          v_scales).attend(q)
+
+
+register_op("paged_kv_update", _paged_kv_update_op)
+register_op("paged_kv_update_quant", _paged_kv_update_quant_op)
+register_op("paged_kv_copy", _paged_kv_copy_op)
+register_op("paged_attention", _paged_attention_op)
+register_op("paged_attention_quant",
+            lambda q, k_pages, v_pages, k_scales, v_scales, block_tables,
+            seq_lens, q_pos, *, scale, kernel: _paged_attention_op(
+                q, k_pages, v_pages, block_tables, seq_lens, q_pos,
+                scale=scale, kernel=kernel, k_scales=k_scales,
+                v_scales=v_scales))

@@ -127,7 +127,7 @@ class ServingEngine:
                  replica_id: Optional[str] = None) -> None:
         cfg = model.config
         self.device = resolve_device(device)
-        model_device = next(model.parameters()).device
+        model_device = next(iter(model.parameters())).device
         if model_device != self.device:
             raise ValueError(f"the model lives on {model_device} but the "
                              f"engine was asked for {self.device}")

@@ -2,9 +2,11 @@
 ``paddle_tpu_torch/tensor/*``) against the JAX package's registry.
 
 The reference registers 278 ops.  The port registers every one that
-``paddle_tpu/tensor/*`` registers, under the same name; every other op is
-listed in ``NOT_PORTED`` with the ROADMAP item that ports it, and an op in
-neither fails ``test_registry_is_tiled``.
+``paddle_tpu/tensor/*`` and the nn functionals register, and the
+registry entries of the functionals beside the model and the engine
+(``flash_sdpa``, the paged-KV ops, ``quant_matmul``, ...), under the same
+names; every other op is listed in ``NOT_PORTED`` with the ROADMAP item
+that ports it, and an op in neither fails ``test_registry_is_tiled``.
 
 Each ported op runs on the inputs of ``tests/test_check_grad_sweep.py``'s
 ``SPEC``/``_build`` (imported, not edited; ``EXTRA`` below for the ops that
@@ -26,6 +28,7 @@ from paddle_tpu.ops.op import _REGISTRY as JREG
 from paddle_tpu.ops.op import apply_op as japply
 
 import paddle_tpu_torch as P
+import paddle_tpu_torch.nn.functional as TF
 from paddle_tpu_torch.core import errors as terrors
 from paddle_tpu_torch.core import grad_mode as tgrad
 from paddle_tpu_torch.core import random_state as trandom
@@ -36,25 +39,7 @@ from test_check_grad_sweep import SPEC, _build, _call  # noqa: E402
 
 # -- the registry, side by side -------------------------------------------------
 
-_A3B = "A3b (nn functionals and layers)"
-_A3B_REG = ("A3b (registry entry; the function itself is already ported "
-            "beside the model or the engine)")
 NOT_PORTED = {
-    **{n: _A3B for n in (
-        "celu_op", "elu_op", "gelu_op", "hardshrink_op", "hardsigmoid_op",
-        "hardswish", "hardtanh_op", "leaky_relu_op", "log_sigmoid",
-        "log_softmax_op", "mish", "prelu_op", "relu", "relu6", "selu_op",
-        "silu", "softmax_op", "softshrink_op", "softsign",
-        "tanhshrink", "thresholded_relu_op", "alpha_dropout_op",
-        "dropout_op", "embedding_op", "linear_op", "normalize_op",
-        "bce_logits", "ctc_loss_op", "softmax_ce", "rnnt_loss_op",
-        "batch_norm_infer", "batch_norm_train", "group_norm_op",
-        "instance_norm_op", "layer_norm_op", "rms_norm_op")},
-    **{n: _A3B_REG for n in (
-        "flash_sdpa", "sdpa", "sdpa_dropout", "varlen_flash", "varlen_sdpa",
-        "varlen_sdpa_dropout", "rope", "rope_at", "paged_attention",
-        "paged_attention_quant", "paged_kv_copy", "paged_kv_update",
-        "paged_kv_update_quant", "quant_matmul", "quant_embedding_lookup")},
     **{n: "A4 (quantization/ PTQ and QAT)" for n in ("fake_quant_dequant",)},
     **{n: "A7 (distributed: ring and Ulysses attention)"
        for n in ("ring_attention", "ulysses_attention")},
@@ -97,10 +82,13 @@ def test_registry_is_tiled():
     assert not missing, f"unclassified reference ops: {sorted(missing)}"
     stale = (ported | listed) - ref - LAZY
     assert not stale, f"names the reference does not register: {stale}"
-    assert len(ported) == 177
-    # the port's infermeta rule is the reference's, op by op
+    assert len(ported) == 228
+    # the port's infermeta rule is the reference's, op by op (a lazily
+    # registered reference op has no rule of its own: "opaque")
     for n in ported:
-        assert top.get_op(n).infer_category == JREG[n].infer_category, n
+        want = JREG[n].infer_category if n in JREG else "opaque"
+        assert n in JREG or n in LAZY, n
+        assert top.get_op(n).infer_category == want, n
 
 
 # -- inputs for the ops the check_grad sweep leaves out ----------------------------
@@ -158,6 +146,10 @@ EXTRA = {
                                 r.rand(3, 4).astype(np.float32) + 0.5], {}),
     "complex_op": lambda r: ([r.randn(3, 4).astype(np.float32),
                               r.randn(3, 4).astype(np.float32)], {}),
+    "batch_norm_train": lambda r: ([r.randn(4, 3, 2).astype(np.float32),
+                                    r.rand(3).astype(np.float32) + 0.5,
+                                    r.randn(3).astype(np.float32)],
+                                   dict(axes_key=(0, 2), epsilon=1e-5)),
 }
 
 
@@ -601,12 +593,17 @@ def test_quantile_of_several_q_matches_numpy(cpu_default):
 
 def test_chip_smoke_op_cases_cover_the_registry():
     """chip_smoke.py's ops phase (the registry on the card vs the CPU) has
-    a case for every non-random op, and each runs here on the CPU."""
+    a case for every op but the random ones and the kernel entries (which
+    it checks at phase 3's shapes on the card), and each runs here on the
+    CPU, the nn ops' backward too."""
     import chip_smoke
     cases = chip_smoke.op_cases()
-    assert set(cases) | set(chip_smoke.RANDOM_OPS) == set(top.all_ops())
+    assert set(cases) | set(chip_smoke.RANDOM_OPS) | \
+        set(chip_smoke.KERNEL_OPS) == set(top.all_ops())
+    nn_names = set(chip_smoke.nn_op_cases(False))
     for name, (args, kwargs) in sorted(cases.items()):
-        assert chip_smoke.run_op_case(name, args, kwargs, "cpu"), name
+        assert chip_smoke.run_op_case(name, args, kwargs, "cpu",
+                                      name in nn_names), name
     for name in chip_smoke.RANDOM_OPS:
         a = chip_smoke.random_op_draw(name, "cpu")
         assert torch.equal(a, chip_smoke.random_op_draw(name, "cpu"))
@@ -635,3 +632,234 @@ def test_top_level_framework_functions():
         paddle.get_flags("serving_kv_quant") == "off"
     if not torch.cuda.is_available():
         assert P.get_cuda_rng_state() == []
+
+
+# -- the nn ops the check_grad sweep leaves out ----------------------------------------
+
+def _grad_pair(name, args, kwargs, diff, jfn=None):
+    """One registry op in both packages on the same arrays: every output
+    within 1e-5, and the gradients of the float outputs' sum."""
+    jt = [paddle.to_tensor(a, stop_gradient=i not in diff)
+          if isinstance(a, np.ndarray) else a for i, a in enumerate(args)]
+    want = (jfn or (lambda *a, **k: japply(JREG[name], *a, **k)))(
+        *jt, **kwargs)
+    want = want if isinstance(want, (tuple, list)) else (want,)
+    sum(w.astype("float64").sum() for w in want
+        if not w.stop_gradient).backward()
+    targs, leaves = _port_args(args, diff)
+    got = top.apply(name, *targs, **kwargs)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    _same(_to_np(tuple(got)), _to_np(tuple(want)), name)
+    sum(g.double().sum() for g in got if g.requires_grad).backward()
+    for i in sorted(diff):
+        np.testing.assert_allclose(
+            leaves[i].grad.double().numpy(), np.asarray(
+                jt[i].grad.numpy(), np.float64), rtol=1e-5, atol=1e-5,
+            err_msg=f"{name} input {i}")
+
+
+def test_batch_norm_train_op_grads():
+    args, kwargs = EXTRA["batch_norm_train"](_r("batch_norm_train"))
+    _grad_pair("batch_norm_train", args, kwargs, {0, 1, 2})
+
+
+def test_rnnt_loss_op():
+    """Registered lazily by the reference (on its first rnnt_loss call)."""
+    r = _r("rnnt_loss_op")
+    logits = r.randn(2, 3, 3, 4).astype(np.float32)
+    args = [logits, np.array([[1, 2], [3, 0]], np.int32),
+            np.array([3, 2], np.int32), np.array([2, 1], np.int32)]
+    import paddle_tpu.nn.functional as JF
+    JF.rnnt_loss(*[paddle.to_tensor(a) for a in args])
+    _grad_pair("rnnt_loss_op", args, dict(blank=0, fastemit_lambda=0.001),
+               {0})
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_dropout_ops_draw_from_their_generator(exact):
+    """``dropout_op`` and ``alpha_dropout_op`` take a torch.Generator where
+    the reference's take a JAX key: the same seed gives the same mask; the
+    realised keep rate and scale are the reference's (p quantised to
+    1/256 unless exact)."""
+    x = torch.ones(400, 300)
+    g = torch.Generator().manual_seed(4)
+    y = top.apply("dropout_op", x, g, p=0.3, upscale=True, exact=exact)
+    g.manual_seed(4)
+    assert torch.equal(top.apply("dropout_op", x, g, p=0.3, upscale=True,
+                                 exact=exact), y)
+    keep_p = 0.7 if exact else 1 - round(0.3 * 256) / 256
+    kept = y != 0
+    torch.testing.assert_close(y[kept], torch.full_like(y[kept], 1 / keep_p))
+    n = x.numel()
+    assert abs(kept.double().mean().item() - keep_p) < \
+        6 * (keep_p * (1 - keep_p) / n) ** 0.5
+    down = top.apply("dropout_op", x, g, p=0.3, upscale=False)
+    assert set(torch.unique(down).tolist()) == {0.0, 1.0}
+    a = top.apply("alpha_dropout_op", torch.randn(400, 300, generator=g), g,
+                  p=0.2)
+    assert abs(a.mean().item()) < 0.02 and abs(a.std().item() - 1) < 0.02
+
+
+# -- the registry entries of the functionals beside the model and the engine -------
+# Each runs the reference's op (its Pallas kernels in interpret mode where
+# the op takes them) and the port's on the same arrays, and the port's op
+# is also the functional it wraps.
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    from paddle_tpu.nn.functional import attention as jfa
+    from paddle_tpu.ops.pallas import quant_matmul as jqmm
+    from paddle_tpu.serving import attention as jsa
+    for mod in (jfa, jsa, jqmm):
+        monkeypatch.setattr(mod, "_PALLAS_INTERPRET", True)
+
+
+def _f32(*shape, seed=0):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_sdpa_op(pallas_interpret, causal):
+    q, k, v = (_f32(1, 128, 4, 16, seed=i) for i in range(3))
+    k, v = k[:, :, :2], v[:, :, :2]                   # grouped-query heads
+    kw = dict(scale=0.25, is_causal=causal)
+    _grad_pair("flash_sdpa", [q, k, v], kw, {0, 1, 2})
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    out, lse = top.apply("flash_sdpa", *t, **kw)
+    ref_out, ref_lse = TF.flash_sdpa(*t, 0.25, causal)
+    assert torch.equal(out, ref_out) and torch.equal(lse[..., 0], ref_lse)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_ops(pallas_interpret, causal):
+    q, k, v = (_f32(256, 2, 16, seed=i) for i in range(3))
+    cu = np.array([0, 100, 173, 256], np.int32)
+    _grad_pair("varlen_flash", [q, k, v, cu], dict(scale=0.25,
+                                                   causal=causal),
+               {0, 1, 2})
+    _grad_pair("varlen_sdpa", [q, k, v, cu, cu], dict(scale=0.25,
+                                                      causal=causal),
+               {0, 1, 2})
+    t = [torch.from_numpy(a) for a in (q, k, v, cu)]
+    out, _ = TF.flash_attn_unpadded(*t[:3], t[3], t[3], 0, 0, 0.25,
+                                    causal=causal)
+    torch.testing.assert_close(top.apply("varlen_flash", *t, scale=0.25,
+                                         causal=causal)[0], out)
+
+
+def test_rope_ops():
+    from paddle_tpu_torch.models.llama import _rope_tables
+    x = _f32(2, 5, 3, 8)
+    cos, sin = (t.numpy() for t in _rope_tables(8, 16, 10000.0, "cpu"))
+    _grad_pair("rope", [x, cos[:5], sin[:5]], {}, {0})
+    pos = np.random.RandomState(1).randint(0, 16, (2, 5)).astype(np.int32)
+    _grad_pair("rope_at", [x, cos, sin, pos], {}, {0})
+
+
+def _pages(seed=0, quant=False):
+    r = np.random.RandomState(seed)
+    pages = r.randn(6, 4, 2, 8).astype(np.float32)
+    if quant:
+        return (r.randint(-127, 128, (6, 4, 2, 8)).astype(np.int8),
+                (r.rand(6, 4, 2, 1) * 0.02).astype(np.float32))
+    return pages
+
+
+def test_paged_kv_ops():
+    """The writes return the updated pools (the port's, in place); page 0,
+    the padding sink, takes duplicate writes in another order and is not
+    compared."""
+    k_new, v_new = _f32(2, 2, 2, 8, seed=1), _f32(2, 2, 2, 8, seed=2)
+    sp = np.array([3, 3, 5, 0], np.int32)
+    so = np.array([0, 1, 2, 0], np.int32)
+    cases = [
+        ("paged_kv_update", [_pages(), _pages(1), k_new, v_new, sp, so]),
+        ("paged_kv_copy", [_pages(), _pages(1), np.array([3, 5, 0], np.int32),
+                           np.array([5, 1, 0], np.int32)]),
+        ("paged_kv_update_quant", [_pages(2, True)[0], _pages(3, True)[0],
+                                   _pages(2, True)[1], _pages(3, True)[1],
+                                   k_new, v_new, sp, so]),
+    ]
+    for name, args in cases:
+        want = _to_np(japply(JREG[name], *args))
+        targs, _ = _port_args([a.copy() for a in args], set())
+        got = _to_np(top.apply(name, *targs))
+        assert len(got) == len(want), name
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g[1:], w[1:], rtol=1e-5, atol=1e-5,
+                                       err_msg=name)
+
+
+def _decode_args(seed=0, quant=False):
+    r = np.random.RandomState(seed)
+    q = r.randn(3, 1, 4, 8).astype(np.float32)
+    bt = np.array([[1, 2, 0], [3, 0, 0], [4, 5, 1]], np.int32)
+    lens = np.array([6, 3, 9], np.int32)
+    pos = (lens - 1).reshape(3, 1).astype(np.int32)
+    if quant:
+        (kq, ks), (vq, vs) = _pages(seed, True), _pages(seed + 1, True)
+        return [q, kq, vq, ks, vs, bt, lens, pos]
+    return [q, _pages(seed), _pages(seed + 1), bt, lens, pos]
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+@pytest.mark.parametrize("name", ["paged_attention", "paged_attention_quant"])
+def test_paged_attention_ops(pallas_interpret, name, kernel):
+    """kernel=True with one query token takes the decode kernel (its
+    plain version on CPU tensors; the reference's Pallas kernel in
+    interpret mode); otherwise the gather path."""
+    args = _decode_args(quant=name.endswith("quant"))
+    kw = dict(scale=0.3, kernel=kernel)
+    want = _to_np(japply(JREG[name], *args, **kw))
+    targs, _ = _port_args(args, set())
+    got = _to_np(top.apply(name, *targs, **kw))
+    _same(got, want, name)
+
+
+@pytest.mark.parametrize("kernel", [False, True])
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quant_ops(pallas_interpret, bits, kernel):
+    from paddle_tpu.quantize import core as jcore
+    r = np.random.RandomState(bits)
+    x = r.randn(8, 256).astype(np.float32)
+    q, s, g = jcore.quantize_weight(r.randn(256, 128).astype(np.float32),
+                                    bits=bits, group=128)
+    kw = dict(bits=bits, group=g, kernel=kernel)
+    want = _to_np(japply(JREG["quant_matmul"], x, q, s, **kw))
+    targs, _ = _port_args([x, q, s], set())
+    got = _to_np(top.apply("quant_matmul", *targs, **kw))
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-4)
+    ids = np.array([[0, 5], [7, 2]], np.int32)
+    rows = r.randint(-127, 128, (8, 16)).astype(np.int8)
+    scales = (r.rand(8, 1) * 0.01).astype(np.float32)
+    want = _to_np(japply(JREG["quant_embedding_lookup"], ids, rows, scales))
+    targs, _ = _port_args([ids, rows, scales], set())
+    _same(_to_np(top.apply("quant_embedding_lookup", *targs)), want,
+          "quant_embedding_lookup")
+
+
+def test_attention_dropout_ops_draw_from_their_generator():
+    """sdpa_dropout and varlen_sdpa_dropout take a torch.Generator where
+    the reference's take a JAX key.  With q = 0 every probability is
+    1 / Sk, so each output element is 0 or (1 / Sk) / keep: sdpa_dropout
+    keeps at the reference's quantised rate (``fast_keep_mask``),
+    varlen_sdpa_dropout at exactly 1 - p (its exact Bernoulli)."""
+    sk = 16
+    q = torch.zeros(1, 64, 8, sk)
+    v = torch.eye(sk).reshape(1, sk, 1, sk).expand(1, sk, 8, sk).contiguous()
+    g = torch.Generator().manual_seed(2)
+    out = top.apply("sdpa_dropout", q, torch.zeros(1, sk, 8, sk), v, None,
+                    g, p=0.3, scale=1.0, is_causal=False)
+    keep = 1 - round(0.3 * 256) / 256
+    vals = set(np.round(torch.unique(out).double().numpy(), 5).tolist())
+    assert vals == {0.0, round(1 / sk / keep, 5)}
+    g.manual_seed(2)
+    assert torch.equal(out, top.apply(
+        "sdpa_dropout", q, torch.zeros(1, sk, 8, sk), v, None, g, p=0.3,
+        scale=1.0, is_causal=False))
+    cu = torch.tensor([0, sk], dtype=torch.int32)
+    vo = top.apply("varlen_sdpa_dropout", torch.zeros(sk, 8, sk),
+                   torch.zeros(sk, 8, sk), v[0], cu, cu, g, scale=1.0,
+                   causal=False, p=0.25)
+    vals = set(np.round(torch.unique(vo).double().numpy(), 5).tolist())
+    assert vals == {0.0, round(1 / sk / 0.75, 5)}

@@ -90,11 +90,16 @@ def test_cross_entropy_matches_reference(case):
 
 
 def test_cross_entropy_refuses_what_it_leaves_out():
+    """Class weights and use_softmax=False compute now (C7; held to the
+    reference in tests/test_torch_nn_functional.py); an unknown reduction
+    still raises."""
     x, y = torch.zeros(2, 3), torch.zeros(2, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="weights"):
-        F.cross_entropy(x, y, weight=torch.ones(3))
-    with pytest.raises(NotImplementedError, match="use_softmax"):
-        F.cross_entropy(x, y, use_softmax=False)
+    np.testing.assert_allclose(
+        F.cross_entropy(x, y, weight=torch.ones(3)).item(), np.log(3),
+        rtol=1e-6)
+    np.testing.assert_allclose(
+        F.cross_entropy(torch.full((2, 3), 0.25), y, use_softmax=False)
+        .item(), np.log(4), rtol=1e-6)
     with pytest.raises(ValueError, match="reduction"):
         F.cross_entropy(x, y, reduction="avg")
 
