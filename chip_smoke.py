@@ -18,7 +18,9 @@ and prints no result line):
 3. kernel — each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, plus edge cases (head_dim up to 256;
    the fused optimizer update over SGD, Adam and AdamW, its dtype groups,
-   decay flags and odd sizes, timed at the train phase's 210 parameters);
+   decay flags and odd sizes, the loss scaler's overflow flag set and
+   clear, timed at the train phase's 210 parameters with a null, a clear
+   and a set flag);
    kernel, plain and library times with CUDA events (L2 flushed between
    launches) and the card's bound for the same work (the ragged flash
    forward, which no path calls, at the serving chunk shape; the flash
@@ -34,8 +36,10 @@ and prints no result line):
    graph's launches a replay times its replays), 0 recaptures after
    warmup, a decode replay against its body run eagerly on the same
    inputs, first-decode-step logits held against an engine on the plain
-   gather path, and a tiny f32 model's tokens held against a
-   full-recompute greedy reference;
+   gather path, ``serving.step=error,n=1`` armed once on the captured
+   engine (the step raises, ``health_snapshot`` reports it, disarmed the
+   same tokens, no recapture), and a tiny f32 model's tokens held against
+   a full-recompute greedy reference;
 5. train  — Llama-7B width (hidden 4096, intermediate 11008, 32 heads,
    seq 4096, bf16; the layer count by bench.py's memory rule) trained
    with AdamW, bench_llama's optimizer and data: eagerly, one warm-up and
@@ -62,14 +66,32 @@ and prints no result line):
    checked, and first-decode-step logits held against the same quantized
    model on the plain paths (and printed against the bf16 model's); then
    a tiny f32 Llama with int8 weights and int8 KV on the card vs the CPU;
-9. profiles — torch.profiler breakdowns of 256-token prefill chunks and
+9. amp train — (a) O2 float16 at the train phase's width and depth: the
+   float32 Llama cast by ``amp.decorate(level="O2", dtype="float16")``,
+   AdamW with float32 moments, a ``GradScaler`` whose first scale
+   overflows: the overflowed step leaves every parameter, moment and the
+   device step counter bitwise unchanged and the scale falls by
+   ``decr_ratio``; three applied steps, each inside
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync), losses
+   finite and falling; a fourth profiled: the flash kernels once a layer
+   in float16 and one fused update kernel; step ms, tokens/s, MFU, peak
+   memory; (b) O1 (``auto_cast``) at that width, 2 layers, against the
+   same float32 model (linear and matmul in float16, flash_sdpa taken in
+   float16, the logits and the gradients, through a GradScaler, within
+   AMP_O1_RTOL, which a bfloat16 control and a control whose linears
+   skip their last K tile must each fail); (c) resume: model, optimizer
+   and scaler state_dicts saved with ``paddle_tpu_torch.save`` after an
+   overflowed and two applied steps, loaded into fresh objects, the next
+   step bitwise equal on both; (d) a PyLayer and jacobian, hessian, jvp,
+   vjp card vs CPU;
+10. profiles — torch.profiler breakdowns of 256-token prefill chunks and
    batch-8 decode steps (replays; bf16; int8 weights and KV; int4
    weights; the decode replay's copy-on-write list's share), of one
    eager train step and of one train replay (the update's kernels summed
    apart), each replay's kernels counted by name against its graph's
    record, after every timed phase, since a profiler run slows the host
    side of later work;
-10. ops — every op of the port's registry (``paddle_tpu_torch/ops/op.py``)
+11. ops — every op of the port's registry (``paddle_tpu_torch/ops/op.py``)
    on CUDA tensors against the same call on CPU tensors (f32 within 1e-5,
    integer and bool exact; random ops by shape, dtype and determinism of
    their generator): the tensor ops at small shapes, the nn ops at the
@@ -81,7 +103,8 @@ and prints no result line):
    entries over the hand-written kernels (flash_sdpa, varlen_flash,
    paged_attention, paged_attention_quant, quant_matmul) at phase 3's
    shapes against the kernels' plain versions, each launching its kernel;
-11. nn surface and checkpoints — (a) Llama-7B (a ``Layer``) saved with
+   the ``tensor/extension.py`` functions card vs CPU;
+12. nn surface and checkpoints — (a) Llama-7B (a ``Layer``) saved with
    ``paddle_tpu_torch.save`` in the reference's checkpoint format and
    loaded into a second Llama-7B built from another seed (the first freed
    before): every tensor bitwise equal, phase 4's prompts give the same
@@ -558,6 +581,9 @@ def phase_flash_kernels(card, bw):
     cases = [
         # the train phase's shape: B=1, H=32, S=4096, D=128, bf16, causal
         ("training shape", 1, 32, 32, 4096, 128, bf16, True),
+        # the amp phase's O2 path runs the __half kernels at this shape
+        ("training shape, float16 (amp phase)", 1, 32, 32, 4096, 128, f16,
+         True),
         ("GQA 32q/8kv", 1, 32, 8, 2048, 128, bf16, True),
         ("S=4000, partial last tiles of 64 and 128", 1, 8, 8, 4000, 128,
          bf16, True),
@@ -1343,14 +1369,66 @@ def fu_tensors(shapes, p_dtype, m_dtype, seed, copies=2):
     return sets
 
 
+def fu_skip_checks(fu, sizes, decay):
+    """The loss scaler's overflow flag (a 0-dim f32 on the card) over the
+    dtype groups amp training takes (f32, bf16, f16, and f16/bf16 with f32
+    moments), AdamW and SGD: set, the kernel and the plain version leave
+    every p, m1, m2 bitwise as it was; clear, the kernel's result is
+    bitwise the plain version's.  Returns the number of cases."""
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    cases = 0
+    for kind in (fu.SGD, fu.ADAM):
+        for pdt, mdt in ((f32, f32), (bf16, bf16), (f16, f16), (f16, f32),
+                         (bf16, f32)):
+            if kind == fu.SGD and mdt != pdt:
+                continue
+            a, b = fu_tensors(sizes, pdt, mdt, SEED + 92)
+            ms = (lambda t: t[2:]) if kind == fu.ADAM else \
+                (lambda t: (None, None))
+            old = [[x.clone() for x in lst] for lst in a]
+            lr = torch.tensor(1e-2, device="cuda")
+            st = torch.tensor(1.0, device="cuda")
+            flag = torch.ones((), device="cuda")
+            kw = dict(coeff=0.1, skip=flag)
+            fu.fused_update(kind, a[0], a[1], *ms(a), decay, lr, st, **kw)
+            fu.fused_update_ref(kind, b[0], b[1], *ms(b), decay, lr, st,
+                                **kw)
+            torch.cuda.synchronize()
+            js = (0, 2, 3) if kind == fu.ADAM else (0,)
+            for t in (a, b):
+                for j in js:
+                    for got, was in zip(t[j], old[j]):
+                        if not torch.equal(got, was):
+                            raise AssertionError(
+                                f"fused_update with the flag set changed a "
+                                f"tensor ({pdt}/{mdt}, kind {kind})")
+            flag.zero_()
+            fu.fused_update(kind, a[0], a[1], *ms(a), decay, lr, st, **kw)
+            fu.fused_update_ref(kind, b[0], b[1], *ms(b), decay, lr, st,
+                                **kw)
+            torch.cuda.synchronize()
+            for j in js:
+                for got, want in zip(a[j], b[j]):
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"fused_update with the flag clear is not "
+                            f"bitwise the plain version's ({pdt}/{mdt}, "
+                            f"kind {kind}; max abs err "
+                            f"{(got.float() - want.float()).abs().max():.3e})")
+            cases += 1
+            del a, b, old
+    return cases
+
+
 def phase_fused_update(card, bw):
     """The fused update (SGD, Adam, AdamW) against its plain version over
     the dtype groups (f32; bf16; bf16 with f32 moments), mixed decay flags
-    and sizes 1, 7, 4095 and 4096 x 11008, two steps each; then at the
-    train phase's 210 parameters (bf16, AdamW) in one table, six of them
-    against the plain version, and its time there, beside the plain
-    version's (a tensor at a time) and torch's fused AdamW
-    (``torch._fused_adamw_``)."""
+    and sizes 1, 7, 4095 and 4096 x 11008, two steps each; the overflow
+    flag's cases (``fu_skip_checks``); then at the train phase's 210
+    parameters (bf16, AdamW) in one table, six of them against the plain
+    version, and its time there with a null flag, a clear flag and a set
+    one, beside the plain version's (a tensor at a time) and torch's fused
+    AdamW (``torch._fused_adamw_``)."""
     from paddle_tpu_torch.ops.cuda import fused_update as fu
     from paddle_tpu_torch.ops.cuda.attention import LAUNCH_COUNTS
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1386,6 +1464,11 @@ def phase_fused_update(card, bw):
                 f"{sizes}, decay {flags if name == 'AdamW' else 'off'}: "
                 f"agrees with the plain version (max abs err {err:.3e})")
             del a, b
+    n_skip = fu_skip_checks(fu, sizes, decay)
+    log(f"  fused_update with the overflow flag, {n_skip} cases (SGD and "
+        f"AdamW over f32, bf16, f16, f16/f32 and bf16/f32 moments, sizes "
+        f"{sizes}): set, every tensor bitwise unchanged (kernel and plain "
+        f"version); clear, bitwise the plain version")
     torch.cuda.empty_cache()
     layers = train_layers(torch.cuda.get_device_properties(0).total_memory,
                           *TRAIN_DIMS[:2], TRAIN_DIMS[4])
@@ -1429,6 +1512,16 @@ def phase_fused_update(card, bw):
     ms = time_ms(lambda: fu.fused_update(fu.ADAM, ps, gs, m1s, m2s, flags,
                                          lr, st, coeff=0.01, cache=cache),
                  iters=10, warmup=2)
+    # the same call with the loss scaler's flag: clear (the update runs,
+    # one more 4-byte read a block) and set (every block returns first)
+    flag = torch.zeros((), device="cuda")
+    ms_clear = time_ms(lambda: fu.fused_update(
+        fu.ADAM, ps, gs, m1s, m2s, flags, lr, st, coeff=0.01, cache=cache,
+        skip=flag), iters=10, warmup=2)
+    flag.fill_(1.0)
+    ms_set = time_ms(lambda: fu.fused_update(
+        fu.ADAM, ps, gs, m1s, m2s, flags, lr, st, coeff=0.01, cache=cache,
+        skip=flag), iters=10, warmup=2)
     plain = time_ms(lambda: fu.fused_update_ref(fu.ADAM, ps, gs, m1s, m2s,
                                                 flags, lr, st, coeff=0.01),
                     iters=3, warmup=1)
@@ -1449,6 +1542,9 @@ def phase_fused_update(card, bw):
         f"time) {plain:.3f} ms, library (torch._fused_adamw_) "
         f"{'not timed' if lib is None else f'{lib:.3f} ms'}, bound "
         f"{bound:.3f} ms (bytes)")
+    log(f"  [{card}] the same call with the overflow flag: clear "
+        f"{ms_clear:.3f} ms (null flag {ms:.3f} ms), set {ms_set:.3f} ms "
+        f"(every block returns before it reads a tensor)")
     del ps, gs, m1s, m2s, steps, cache
     torch.cuda.empty_cache()
     return {"name": "fused_update", "route": "cuda",
@@ -1457,7 +1553,8 @@ def phase_fused_update(card, bw):
                         "XLA-fused AdamW update; no Pallas kernel)",
             "launches": None, "max_abs_err": max(errs), "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib}
+            "library_ms": lib, "ms_flag_clear": ms_clear,
+            "ms_flag_set": ms_set, "flag_cases_bitwise": n_skip}
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -1735,12 +1832,56 @@ def free_cuda() -> None:
     torch.cuda.empty_cache()
 
 
+def failpoint_on_engine(engine, vocab: int) -> None:
+    """``serving.step=error,n=1`` armed once on the captured engine, as
+    the reference's tests arm it: the step raises FailpointError on the
+    host before any replay; ``health_snapshot()`` turns unhealthy naming
+    it; disarmed, the same requests finish with the tokens an undisturbed
+    run of the same prompts gave, the engine is healthy again, and
+    nothing recaptured."""
+    from paddle_tpu_torch.utils import failpoint as fp
+    rng = np.random.default_rng(SEED + 7)
+    prompts = [[int(x) for x in rng.integers(1, vocab, n)]
+               for n in (33, 70)]
+    want = engine.generate(prompts, max_new_tokens=8)
+    # the trace counter is the process's (phase 4's gather-path engine
+    # captured its own graphs): this engine recaptures nothing from here
+    base = engine.health_snapshot()["retraces_after_warmup"]
+    reqs = [engine.submit(p, 8) for p in prompts]
+    with fp.failpoints("serving.step=error,n=1"):
+        try:
+            engine.step()
+        except fp.FailpointError as exc:
+            err = exc
+        else:
+            raise AssertionError("serving.step=error did not raise")
+        sick = engine.health_snapshot()
+        fired = fp.stats()["serving.step"]["fired"]
+    if sick["healthy"] or "FailpointError" not in (sick["last_error"]
+                                                   or "") or fired != 1:
+        raise AssertionError(f"health after the injected fault: {sick}")
+    while any(not r.done for r in reqs):
+        engine.step()
+    got = [r.output_tokens for r in reqs]
+    health = engine.health_snapshot()
+    recaptures = health["retraces_after_warmup"] - base
+    if got != want or not health["healthy"] or recaptures:
+        raise AssertionError(f"after the injected fault: tokens {got} "
+                             f"(undisturbed {want}), recaptures "
+                             f"{recaptures}, health {health}")
+    log(f"  serving.step=error,n=1 on the captured engine: raised "
+        f"{type(err).__name__}; health_snapshot healthy "
+        f"{sick['healthy']}, last_error {sick['last_error']!r}; disarmed, "
+        f"the same {len(prompts)} requests served the undisturbed run's "
+        f"tokens, healthy again, recaptures {recaptures}")
+
+
 def phase_serve(card):
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_7b_config,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/11] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/12] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -1783,6 +1924,7 @@ def phase_serve(card):
     assert torch.isfinite(a).all() and a.shape == (len(cmp_prompts),
                                                    cfg.vocab_size)
     assert rel <= LOGITS_REL_TOL, rel
+    failpoint_on_engine(engine, cfg.vocab_size)
     del plain, engine, model
     free_cuda()
 
@@ -1881,7 +2023,7 @@ def phase_train(card, peak_ops):
     hidden, _, _, seq, _, batch = TRAIN_DIMS
     layers, total, model, opt, step = train_setup()
     n_params = model.num_params()
-    log(f"[5/11] train Llama-7B width, {layers} of 32 layers (bench.py's "
+    log(f"[5/12] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
         f"bf16, AdamW: eager, then TrainStepCapture")
     steps = 3
@@ -2009,7 +2151,7 @@ def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses):
     if not all(host[n] > 0 for n in want):
         raise AssertionError(f"a kernel was not launched: {host}")
     log(f"  captured update: fused_update {graph.launches['fused_update']} "
-        f"a replay (its device time: phase 9's profiled replay)")
+        f"a replay (its device time: phase 10's profiled replay)")
     return launches
 
 
@@ -2077,7 +2219,7 @@ def phase_packed(card):
     layers, bf16 = 32, torch.bfloat16
     cu = cu_of(PACKED_DOCS)
     t, longest, scale = int(cu[-1]), max(PACKED_DOCS), 1.0 / math.sqrt(d)
-    log(f"[6/11] packed attention: flash_attn_unpadded forward and backward "
+    log(f"[6/12] packed attention: flash_attn_unpadded forward and backward "
         f"at Llama-7B attention width ({heads} heads x {d}), {layers} "
         f"layers, T={t} in documents {list(PACKED_DOCS)}, bf16, causal")
     inputs = []
@@ -2167,7 +2309,7 @@ def phase_train_parity():
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.optimizer import AdamW
-    log("[7/11] train parity: tiny f32 Llama, card vs CPU")
+    log("[7/12] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
     on_card = LlamaForCausalLM(cfg, seed=SEED)
     on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
@@ -2394,7 +2536,7 @@ def phase_quant_serve(card):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[8/11] quantized serve: Llama-7B (full width and depth), (a) int8 "
+    log("[8/12] quantized serve: Llama-7B (full width and depth), (a) int8 "
         "weights + int8 KV")
     launches = quant_serve_run(card, 8, "int8")
     log("  (b) int4 weights + bf16 KV")
@@ -2440,6 +2582,429 @@ def phase_quant_serve(card):
     return out
 
 
+# -- phase 9: amp train ----------------------------------------------------------
+
+# O2 float16 with dynamic loss scaling: a scale of 2^40 overflows step 1's
+# float16 grads (the loss's gradient at a label's logit, about 1/4096, times
+# 2^40 passes float16's 65504), and the scale it then falls to, 2^40 x
+# 2^-30 = 2^10, leaves them finite
+AMP_INIT_SCALE = 2.0 ** 40
+AMP_DECR_RATIO = 2.0 ** -30
+# O1 (float16 at linear and matmul, the attention in float16 through the
+# flash kernels) against the same float32 model's first step, 2 layers: the
+# relative L2 of the logits and of all gradients together, the O1 backward
+# through a GradScaler at its default scale (2^16) as O1 float16 is trained:
+# unscaled, the loss's gradient at a logit, about 1 / (4096 x 32000) =
+# 7.6e-9, lies under float16's least subnormal (6.0e-8) and the grads'
+# relative L2 reaches 0.26.  The loss is not held: with random weights it
+# stays near ln 32000 whatever the products compute (a product that skips
+# its last 64-wide K tile moves it by 7e-5).
+# The bound lies between the sound run's readings and those of the nearer
+# of two controls run in the same phase, each of which must land past it:
+# bfloat16 in place of float16 (3 mantissa bits fewer at every product)
+# and float16 with every linear skipping its last 64 input features.
+# (readings on an H100 80GB HBM3 at 700 W, logits / grads: sound 1.33e-3
+# / 1.54e-3, bfloat16 1.07e-2 / 1.24e-2, the skipped tile 0.44 / 0.50; the
+# bound is near the geometric mean of the sound and bfloat16 readings)
+AMP_O1_RTOL = 4e-3
+AMP_SMALL_LAYERS = 2
+# the half kernels' names as the profiler shows them
+HALF_KERNEL = re.compile(r"<__half\b")
+
+
+def amp_digest(tensors) -> torch.Tensor:
+    """A bitwise fingerprint a tensor: the (wrapping) int64 sums of its raw
+    bits and of their squares, read to the host."""
+    rows = []
+    for t in tensors:
+        bits = t.detach().view({2: torch.int16, 4: torch.int32}[
+            t.element_size()]).to(torch.int64)
+        rows.append(torch.stack([bits.sum(), (bits * bits).sum()]))
+        del bits
+    return torch.stack(rows).cpu()
+
+
+def amp_config(layers: int):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    hidden, inter, heads, seq, vocab, _ = TRAIN_DIMS
+    return LlamaConfig(vocab_size=vocab, hidden_size=hidden,
+                       intermediate_size=inter, num_hidden_layers=layers,
+                       num_attention_heads=heads, num_key_value_heads=heads,
+                       max_position_embeddings=seq, dtype="float32")
+
+
+def amp_o2_setup(layers: int, seed: int):
+    """A float32 Llama at the train cell's width through
+    ``amp.decorate(level="O2", dtype="float16")``, the train cell's AdamW
+    with float32 moments (``multi_precision``) and a GradScaler; returns
+    (model, optimizer, scaler, step) where ``step()`` is one scaled step
+    on the train cell's batch."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    model = LlamaForCausalLM(amp_config(layers), seed=seed)
+    amp.decorate(model, level="O2", dtype="float16")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    scaler = amp.GradScaler(init_loss_scaling=AMP_INIT_SCALE,
+                            decr_ratio=AMP_DECR_RATIO)
+    ids, labels = train_data()
+
+    def step():
+        loss = model.compute_loss(model(ids), labels)
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+    return model, opt, scaler, step
+
+
+def amp_state(model, opt):
+    params = list(model.parameters())
+    return params + [opt._get_state(n, p) for n in opt._STATE_NAMES
+                     for p in params]
+
+
+def amp_o2_full(card, peak_ops) -> None:
+    """(a) O2 float16 at the train cell's width and depth: step 1 overflows
+    and changes nothing (every parameter and moment bitwise, the step
+    counter 0, the scale down by AMP_DECR_RATIO); then 3 applied steps,
+    each inside torch.cuda.set_sync_debug_mode("error"), losses finite and
+    falling; a fourth applied step profiled: the flash kernels once a
+    layer each in float16, one fused update kernel (float16 parameters,
+    float32 moments) and no other update kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    hidden, inter, _, seq, vocab, batch = TRAIN_DIMS
+    layers = train_layers(torch.cuda.get_device_properties(0).total_memory,
+                          hidden, inter, vocab)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model, opt, scaler, step = amp_o2_setup(layers, SEED)
+    n_params = model.num_params()
+    log(f"  (a) O2 float16, {layers} layers ({n_params / 1e9:.3f} B "
+        f"parameters, built in float32 and cast by amp.decorate in "
+        f"{time.perf_counter() - t0:.1f} s); AdamW(1e-4, weight_decay "
+        f"0.01, multi_precision: float32 moments); GradScaler("
+        f"init_loss_scaling=2^{int(math.log2(AMP_INIT_SCALE))}, "
+        f"decr_ratio=2^{int(math.log2(AMP_DECR_RATIO))})")
+    params = list(model.parameters())
+    if {p.dtype for p in params} != {torch.float16}:
+        raise AssertionError("decorate left a parameter that is not "
+                             "float16")
+    state = amp_state(model, opt)          # the moments, made before step 1
+    before = amp_digest(state)
+    sample = [t.clone() for t in (state[0], state[len(params)],
+                                  state[-1])]
+    reset_launch_counts()
+    losses = [step()]
+    torch.cuda.synchronize()
+    after = amp_digest(state)
+    skipped = int(scaler._found_inf)
+    if not skipped or not torch.equal(before, after) or \
+            int(opt._global_step) != 0 or not all(
+                torch.equal(a, b) for a, b in zip(
+                    sample, (state[0], state[len(params)], state[-1]))):
+        raise AssertionError(
+            f"the overflowed step: found_inf {scaler._found_inf}, state "
+            f"unchanged {torch.equal(before, after)}, step counter "
+            f"{int(opt._global_step)}")
+    scale1 = scaler.get_init_loss_scaling()
+    if scale1 != AMP_INIT_SCALE * AMP_DECR_RATIO:
+        raise AssertionError(f"scale after the overflow {scale1}")
+    if LAUNCH_COUNTS["fused_update"] != 1:
+        raise AssertionError(f"fused_update launched "
+                             f"{LAUNCH_COUNTS['fused_update']} times")
+    log(f"  step 1 overflowed (found_inf): {len(state)} tensors (parameters"
+        f", both moments) bitwise unchanged, the device step counter 0, the "
+        f"scale {AMP_INIT_SCALE:.4g} -> {scale1:g}; its one fused_update "
+        f"launch returned at the flag")
+    del sample
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            losses.append(step())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses.append(step())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    applied = losses[1:]
+    if scaler._found_inf or int(opt._global_step) != len(applied):
+        raise AssertionError(f"applied steps: found_inf "
+                             f"{scaler._found_inf}, step counter "
+                             f"{int(opt._global_step)}")
+    if not all(math.isfinite(x) for x in applied) or \
+            not applied[-1] < applied[0]:
+        raise AssertionError(f"applied losses {applied}")
+    tokens_s = batch * seq / step_s
+    flops_tok = 6.0 * n_params + 12.0 * layers * hidden * seq
+    log(f"  losses {', '.join(f'{x:.4f}' for x in losses)} (the overflowed "
+        f"step first; {len(applied)} applied, the last profiled); skipped "
+        f"steps {skipped}; every step after the first under "
+        f"set_sync_debug_mode('error'): no host sync")
+    log(f"  [{card}] O2 float16 step {step_s * 1e3:.1f} ms, "
+        f"{tokens_s:,.1f} tokens/s, MFU {tokens_s * flops_tok / peak_ops:.4f}"
+        f" (bench_llama's formula at {peak_ops / 1e12:.0f} TFLOP/s), peak "
+        f"memory {peak / 1e9:.2f} GB")
+    rows = [e for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.self_cpu_time_total == 0]
+    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+        mine = [e for e in rows if re.search(KERNEL_NAMES[name], e.key)]
+        half = sum(e.count for e in mine if HALF_KERNEL.search(e.key))
+        if half != layers or sum(e.count for e in mine) != layers:
+            raise AssertionError(f"{name} in the profiled step: "
+                                 f"{[(e.key, e.count) for e in mine]}")
+    upd = [e for e in rows if re.search(r"adam|Adam|sgd|SGD|fused_update_"
+                                        r"kernel", e.key)]
+    if [(e.count, "__half, float" in e.key) for e in upd] != [(1, True)]:
+        raise AssertionError(f"update kernels in the profiled step: "
+                             f"{[(e.key, e.count) for e in upd]}")
+    scaler_rows = [e for e in rows if "fused_update_set_grads" in e.key
+                   or "AmpNonfinite" in e.key or "non_finite" in e.key
+                   or "unscale" in e.key]
+    log(f"  profiled applied step: flash_fwd, flash_dq, flash_dkv "
+        f"{layers} each, float16 (<__half>); update: "
+        f"{upd[0].key[:70]} x{upd[0].count} "
+        f"{upd[0].self_device_time_total / 1e3:.3f} ms; beside it "
+        + ", ".join(f"{e.key[:60]} x{e.count} "
+                    f"{e.self_device_time_total / 1e3:.3f} ms"
+                    for e in scaler_rows))
+    del model, opt, scaler, step, state, params
+    free_cuda()
+
+
+def amp_o1_readings(model, ids, labels, ref=None, scaler=None):
+    """One first step of ``model``: (logits, grads, loss) when ``ref`` is
+    None, else the relative L2 of the logits and of all gradients together
+    against ``ref``'s (grads freed after).  With ``scaler`` the backward
+    runs from ``scaler.scale(loss)`` and the grads are divided by its
+    scale (a power of 2: exact in float32)."""
+    for p in model.parameters():
+        p.grad = None
+    logits = model(ids)
+    loss = model.compute_loss(logits, labels)
+    (loss if scaler is None else scaler.scale(loss)).backward()
+    inv = 1.0 if scaler is None else 1.0 / scaler.get_init_loss_scaling()
+    grads = [p.grad for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = None
+    if ref is None:
+        return logits.detach().float(), grads, loss.detach()
+    r_logits, r_grads, r_loss = ref
+    num = torch.zeros((), dtype=torch.float64, device=r_logits.device)
+    den = torch.zeros_like(num)
+    for g, r in zip(grads, r_grads):
+        if g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"O1 grad {g.dtype}, finite "
+                                 f"{bool(torch.isfinite(g).all())}")
+        num += (g * inv - r).double().square().sum()
+        den += r.double().square().sum()
+    lg = logits.detach().float()
+    return {"logits": ((lg - r_logits).norm() / r_logits.norm()).item(),
+            "grads": (num.sqrt() / den.sqrt()).item(),
+            "loss": ((loss.detach() - r_loss).abs() / r_loss.abs()).item()}
+
+
+def amp_o1(card) -> None:
+    """(b) O1 at the train cell's width, 2 layers: the float32 model's
+    first step, then the same model's under ``auto_cast(level="O1",
+    dtype="float16")`` with a GradScaler: linear and matmul give float16,
+    the attention takes flash_sdpa with float16 q/k/v, and the logits and
+    gradients agree with float32 within AMP_O1_RTOL; two controls,
+    bfloat16 and float16 with every linear skipping its last 64 input
+    features, must each land past it.  The unscaled float16 backward is
+    read and printed too."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    model = LlamaForCausalLM(amp_config(AMP_SMALL_LAYERS), seed=SEED)
+    ids, labels = train_data()
+    ref = amp_o1_readings(model, ids, labels)
+    seen = []
+    sdpa, linear = F.scaled_dot_product_attention, F.linear
+
+    def spy(q, k, v, *args, **kwargs):
+        seen.append((q.dtype, k.dtype, v.dtype))
+        return sdpa(q, k, v, *args, **kwargs)
+
+    def skip_last_k_tile(x, weight, bias=None, name=None):
+        return linear(x[..., :-64], weight[:-64], bias)
+
+    F.reset_route_counts()
+    reset_launch_counts()
+    F.scaled_dot_product_attention = spy
+    try:
+        with amp.auto_cast(level="O1", dtype="float16"):
+            w = model.lm_head.weight
+            x = torch.randn(8, w.shape[0], device="cuda")
+            lin, mm = F.linear(x, w), P.matmul(x, x, transpose_y=True)
+            got = amp_o1_readings(model, ids, labels, ref, amp.GradScaler())
+    finally:
+        F.scaled_dot_product_attention = sdpa
+    torch.cuda.synchronize()
+    routes = dict(F.ROUTE_COUNTS)
+    flash = {n: LAUNCH_COUNTS[n] for n in ("flash_fwd", "flash_dq",
+                                           "flash_dkv")}
+    with amp.auto_cast(level="O1", dtype="float16"):
+        unscaled = amp_o1_readings(model, ids, labels, ref)
+    controls = {}
+    with amp.auto_cast(level="O1", dtype="bfloat16"):
+        controls["bfloat16"] = amp_o1_readings(model, ids, labels, ref,
+                                               amp.GradScaler())
+    F.linear = skip_last_k_tile
+    try:
+        with amp.auto_cast(level="O1", dtype="float16"):
+            controls["float16, last K tile skipped"] = amp_o1_readings(
+                model, ids, labels, ref, amp.GradScaler())
+    finally:
+        F.linear = linear
+
+    def fmt(r):
+        return (f"logits {r['logits']:.3e} grads {r['grads']:.3e} loss "
+                f"{r['loss']:.3e}")
+    log(f"  (b) O1 float16, {AMP_SMALL_LAYERS} layers (float32 model): "
+        f"linear -> {lin.dtype}, matmul -> {mm.dtype}; attention q/k/v "
+        f"{sorted({str(d) for t in seen for d in t})}, routes {routes}, "
+        f"flash launches {flash}; relative L2 against float32: {fmt(got)} "
+        f"(bound {AMP_O1_RTOL}); "
+        f"float16 with no loss scaling: {fmt(unscaled)}; "
+        + "; ".join(f"control {n}: {fmt(r)}" for n, r in controls.items()))
+    if lin.dtype != torch.float16 or mm.dtype != torch.float16 or \
+            len(seen) != AMP_SMALL_LAYERS or \
+            any(d != torch.float16 for t in seen for d in t) or \
+            routes != {"sdpa_flash": AMP_SMALL_LAYERS} or \
+            set(flash.values()) != {AMP_SMALL_LAYERS}:
+        raise AssertionError(f"O1: linear {lin.dtype}, matmul {mm.dtype}, "
+                             f"attention inputs {seen}, routes {routes}, "
+                             f"launches {flash}")
+    if not (got["logits"] <= AMP_O1_RTOL and got["grads"] <= AMP_O1_RTOL):
+        raise AssertionError(f"O1 against float32: {fmt(got)}")
+    for n, r in controls.items():
+        if not (r["logits"] > AMP_O1_RTOL and r["grads"] > AMP_O1_RTOL):
+            raise AssertionError(f"O1 control {n} within the bound, which "
+                                 f"then tells no fault apart: {fmt(r)}")
+    del model, ref
+    free_cuda()
+
+
+def amp_resume(card) -> None:
+    """(c) Resume at the train cell's width, 2 layers, O2 float16 with the
+    scaler: 3 steps (the first overflows), the model's, the optimizer's
+    and the scaler's state_dicts saved with ``paddle_tpu_torch.save`` and
+    loaded into fresh objects (another seed); step 4 on both: parameters,
+    moments, step count and scale bitwise equal."""
+    import tempfile
+    import paddle_tpu_torch as P
+    model, opt, scaler, step = amp_o2_setup(AMP_SMALL_LAYERS, SEED)
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+    skipped_then = scaler.state_dict()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "amp_resume.pdparams")
+        t0 = time.perf_counter()
+        P.save({"model": model.state_dict(), "opt": opt.state_dict(),
+                "scaler": scaler.state_dict()}, path)
+        save_s = time.perf_counter() - t0
+        gb = Path(path).stat().st_size / 1e9
+        fresh, fopt, fscaler, fstep = amp_o2_setup(AMP_SMALL_LAYERS,
+                                                   SEED + 1)
+        t0 = time.perf_counter()
+        ck = P.load(path)
+        fresh.set_state_dict(ck["model"])
+        fopt.set_state_dict(ck["opt"])
+        fscaler.load_state_dict(ck["scaler"])
+        del ck
+        load_s = time.perf_counter() - t0
+    step()
+    fstep()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(amp_state(model, opt),
+                                              amp_state(fresh, fopt))]
+    steps = (int(opt._global_step), int(fopt._global_step))
+    scales = (scaler.get_init_loss_scaling(),
+              fscaler.get_init_loss_scaling())
+    log(f"  (c) resume, {AMP_SMALL_LAYERS} layers O2 float16: 3 steps "
+        f"(scaler then {skipped_then}), saved {gb:.3f} GB in {save_s:.1f} s"
+        f", loaded into fresh objects in {load_s:.1f} s; step 4 on both: "
+        f"{sum(same)}/{len(same)} tensors bitwise equal, step counts "
+        f"{steps}, scales {scales}")
+    if not all(same) or steps[0] != steps[1] or scales[0] != scales[1] \
+            or steps[0] != 3:
+        raise AssertionError("resume is not bitwise")
+    del model, opt, scaler, step, fresh, fopt, fscaler, fstep
+    free_cuda()
+
+
+def core_on_card() -> None:
+    """(d) A PyLayer with a hand-written backward and jacobian, hessian,
+    jvp and vjp on the card against the same calls on the CPU (float32
+    within OPS_RTOL/OPS_ATOL)."""
+    from paddle_tpu_torch import autograd as A
+
+    class Swish(A.PyLayer):
+        @staticmethod
+        def forward(ctx, x, beta=1.0):
+            s = torch.sigmoid(beta * x)
+            ctx.save_for_backward(x, s)
+            ctx.beta = beta
+            return x * s
+
+        @staticmethod
+        def backward(ctx, g):
+            x, s = ctx.saved_tensor
+            return g * (s + ctx.beta * x * s * (1 - s))
+
+    r = np.random.RandomState(SEED + 20)
+    xs = r.randn(256, 4096).astype(np.float32)
+    gs = r.randn(256, 4096).astype(np.float32)
+    small = r.randn(3, 5).astype(np.float32)
+    tang = r.randn(3, 5).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.from_numpy(xs).to(dev).requires_grad_(True)
+        y = Swish.apply(x, beta=1.5)
+        y.backward(torch.from_numpy(gs).to(dev))
+        s, v = (torch.from_numpy(a).to(dev) for a in (small, tang))
+        f = (lambda a: torch.tanh(a) * a)
+        out = [y.detach(), x.grad, A.jacobian(f, s),
+               A.hessian(lambda a: (a ** 3 * torch.sin(a)).sum(), s),
+               *A.jvp(f, s, v), *A.vjp(f, s, v)]
+        res[dev] = [o.detach().cpu() for o in out]
+    worst = _ops_agree("autograd (PyLayer, jacobian, hessian, jvp, vjp)",
+                       res["cuda"], res["cpu"])
+    log(f"  (d) core on the card: a PyLayer (swish, hand-written backward) "
+        f"at (256, 4096) and jacobian/hessian/jvp/vjp at (3, 5), card vs "
+        f"CPU: largest difference {worst:.3e} (OPS_RTOL/OPS_ATOL)")
+
+
+def phase_amp(card, peak_ops) -> None:
+    log("[9/12] amp train: O2 float16 with dynamic loss scaling at the "
+        "train cell's width and depth, O1, resume, the core on the card")
+    t0 = time.perf_counter()
+    amp_o2_full(card, peak_ops)
+    amp_o1(card)
+    amp_resume(card)
+    core_on_card()
+    log(f"  {time.perf_counter() - t0:.1f} s")
+
+
 def phase_profiles(card) -> None:
     """Where the time goes: torch.profiler breakdowns of 256-token prefill
     chunks and batch-8 decode steps (bf16; int8 weights with the int8 pool;
@@ -2453,7 +3018,7 @@ def phase_profiles(card) -> None:
                                                llama_7b_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[9/11] where the time goes (torch.profiler, after the timed phases)")
+    log("[10/12] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
     prompts = serve_prompts(SEED, cfg.vocab_size)
     for bits, kv, label in ((None, "off", "bf16"),
@@ -2494,7 +3059,7 @@ def phase_profiles(card) -> None:
     free_cuda()
 
 
-# -- phase 10: ops ---------------------------------------------------------------
+# -- phase 11: ops ---------------------------------------------------------------
 
 def op_cases(full: bool = False):
     """{op: (args, kwargs)} for every op of the port's registry but the
@@ -3028,6 +3593,74 @@ def dropout_full_width():
         f"{a.mean().item():.2e} variance {a.var().item():.4f}")
 
 
+def extension_cases():
+    """``tensor/extension.py``'s functions (not registry ops) on numpy
+    inputs: (name, args, kwargs); lists of arrays go in as lists of
+    tensors."""
+    r = np.random.RandomState(SEED + 14)
+    a = r.randn(64, 48).astype(np.float32)
+    b = r.randn(40, 48).astype(np.float32)
+    pos = (r.rand(64, 48) * 3 + 0.2).astype(np.float32)
+    ints = r.randint(0, 50, 4096)
+    x = np.array([0.0, 0.5, 1.5, 2.0, 4.0, 4.5, 6.0, 7.0, 9.0, 9.5]
+                 + list(range(10, 48)), np.float32)
+    return [
+        ("unique", [ints], dict(return_index=True, return_inverse=True,
+                                return_counts=True)),
+        ("unique_consecutive", [np.sort(ints)],
+         dict(return_inverse=True, return_counts=True)),
+        ("argwhere", [a > 1.0], {}),
+        ("take", [a, r.randint(-3000, 3000, (32, 8))], {}),
+        ("take", [a, r.randint(-9000, 9000, 64)], dict(mode="wrap")),
+        ("block_diag", [[a[:8], b[:5, :7], a[0]]], {}),
+        ("cartesian_prod", [[np.arange(5), np.arange(7)]], {}),
+        ("cdist", [a, b], {}), ("cdist", [a, b], dict(p=1.0)),
+        ("trapezoid", [a, x], {}),
+        ("cumulative_trapezoid", [a], dict(dx=0.25, axis=0)),
+        ("renorm", [a, 2.0, 0, 5.0], {}),
+        ("multigammaln", [pos + 2.0, 3], {}),
+        ("polygamma", [pos, 1], {}),
+        ("sinc", [a], {}), ("signbit", [a], {}), ("copysign", [a, pos], {}),
+        ("gammaln", [pos], {}), ("gammainc", [pos, pos[::-1].copy()], {}),
+        ("gammaincc", [pos, pos[::-1].copy()], {}),
+        ("i0", [a], {}), ("i1", [a], {}), ("i0e", [a], {}),
+        ("i1e", [a], {}),
+        ("isneginf", [np.array([-np.inf, 0.0, np.inf], np.float32)], {}),
+        ("isposinf", [np.array([-np.inf, 0.0, np.inf], np.float32)], {}),
+        ("logaddexp", [a, pos], {}), ("logaddexp2", [a, pos], {}),
+        ("nextafter", [a, pos], {}), ("frexp", [a * 100], {}),
+        ("slice_scatter", [a, np.zeros((64, 12), np.float32), [1], [0],
+                           [48], [4]], {}),
+        ("index_fill", [a, np.array([0, 5, 9]), 1, -2.0], {}),
+        ("column_stack", [[a[:, 0], a]], {}), ("vstack", [[a, b]], {}),
+        ("hstack", [[a, pos]], {}), ("dstack", [[a, pos]], {}),
+        ("addmm", [np.ones((64, 40), np.float32), a, b.T.copy()],
+         dict(beta=0.5, alpha=2.0)),
+        ("pdist", [b], {}), ("sgn", [a], {}),
+        ("unflatten", [a, 1, [6, 8]], {}),
+        ("diagonal_scatter", [a[:48], np.ones(48, np.float32)], {}),
+        ("as_complex", [a.reshape(64, 24, 2).copy()], {}),
+        ("as_real", [(a[:, :24] + 1j * a[:, 24:]).astype(np.complex64)],
+         {}),
+        ("shard_index", [r.randint(0, 1000, (256, 1))],
+         dict(index_num=1000, nshards=4, shard_id=2)),
+    ]
+
+
+def run_extension_case(name, args, kwargs, device):
+    import paddle_tpu_torch as P
+
+    def conv(v):
+        if isinstance(v, list) and v and isinstance(v[0], np.ndarray):
+            return [conv(u) for u in v]
+        if isinstance(v, np.ndarray):
+            return torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        return v
+    out = getattr(P, name)(*[conv(v) for v in args], **kwargs)
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return [o.detach().cpu() for o in outs]
+
+
 def phase_ops(card):
     """Every op of the port's registry on CUDA tensors against the same
     call on CPU tensors: float32 within OPS_RTOL/OPS_ATOL (an nn op that
@@ -3039,7 +3672,7 @@ def phase_ops(card):
     shapes, each launching its kernel."""
     from paddle_tpu_torch.ops.op import all_ops
     import paddle_tpu_torch.nn.functional as F
-    log("[10/11] ops: the registry on the card vs the CPU")
+    log("[11/12] ops: the registry on the card vs the CPU")
     t0 = time.perf_counter()
     cases = op_cases(full=True)
     nn_names = set(nn_op_cases(False))
@@ -3101,6 +3734,13 @@ def phase_ops(card):
             raise AssertionError(f"random op {name}: {a.dtype} "
                                  f"{tuple(a.shape)} on {a.device}, "
                                  f"reproducible {torch.equal(a, b)}")
+    ext = extension_cases()
+    ext_worst = max(_ops_agree(name, run_extension_case(name, a, k, "cuda"),
+                               run_extension_case(name, a, k, "cpu"))
+                    for name, a, k in ext)
+    log(f"  {len(ext)} calls of {len({c[0] for c in ext})} tensor/extension"
+        f".py functions agree card vs CPU (largest float difference "
+        f"{ext_worst:.3e})")
     errs = kernel_op_checks()
     log(f"  {len(KERNEL_OPS)} kernel entries at phase 3's shapes, each one "
         f"launch of its kernel, max abs err vs the plain version: "
@@ -3109,7 +3749,7 @@ def phase_ops(card):
         f"seed; {time.perf_counter() - t0:.1f} s")
 
 
-# -- phase 11: the nn surface and checkpoints -------------------------------------
+# -- phase 12: the nn surface and checkpoints -------------------------------------
 
 # the model built only from the nn surface, at Llama-7B's MLP width, and its
 # batch: (8, 512, 4096) f32
@@ -3274,7 +3914,7 @@ def nn_surface_training(card):
 
 
 def phase_nn(card):
-    log("[11/11] nn surface and checkpoints, at full width")
+    log("[12/12] nn surface and checkpoints, at full width")
     t0 = time.perf_counter()
     out = flagship_round_trip(card)
     nn_surface_training(card)
@@ -3290,7 +3930,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/11] device")
+    log("[1/12] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -3301,7 +3941,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/11] build")
+    log("[2/12] build")
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
@@ -3309,7 +3949,7 @@ def main() -> int:
     for kname, info in built.items():
         build_report(kname, info)
 
-    log("[3/11] kernel vs plain version")
+    log("[3/12] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
         phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw) + \
         [phase_fused_update(card, bw)]
@@ -3323,11 +3963,12 @@ def main() -> int:
                      if n.startswith("varlen_")})
     phase_train_parity()
     launches.update(phase_quant_serve(card))
+    phase_amp(card, PEAK_OPS[torch.float16])
     phase_profiles(card)
     phase_ops(card)
     phase_nn(card)
     # on the captured paths: each graph's launches a replay (checked
-    # against the profiler in phase 9) times its replays
+    # against the profiler in phase 10) times its replays
     launched_in = {"rpa_decode": "captured serve (phase 4)",
                    "flash_fwd": "captured train (phase 5)",
                    "flash_dq": "captured train (phase 5)",

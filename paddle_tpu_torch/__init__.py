@@ -21,7 +21,16 @@ captured), and the op surface:
   models/llama.py    — Llama with the paged-KV serving forward and the
                        full-sequence training forward, compute_loss
   optimizer/         — SGD, Adam, AdamW (in place, one fused kernel launch
-                       a dtype group on the card), LR schedulers
+                       a dtype group on the card; parameter groups,
+                       state_dict, the device-side skip of loss
+                       scaling), LR schedulers
+  amp/               — auto_cast (O1/O2 at the reference's call sites),
+                       decorate, GradScaler (no host sync a step),
+                       debugging (check_numerics, operator stats)
+  autograd/          — backward, grad, PyLayer, jacobian/hessian/jvp/vjp,
+                       saved_tensors_hooks, over torch's engine
+  utils/             — the failpoint registry and the retry policy
+  core/tensor.py     — the reference Tensor's methods as free functions
   jit/               — TrainStepCapture (one CUDA graph a batch signature)
                        and the recapture counters
   regularizer.py     — L1Decay, L2Decay
@@ -60,6 +69,8 @@ from .tensor.logic import is_tensor  # noqa: F401
 from .flags import get_flags, set_flags  # noqa: F401,E402
 from . import nn  # noqa: F401,E402
 from .framework.io_utils import load, save  # noqa: F401,E402
+from . import autograd, amp, utils  # noqa: F401,E402
+from .autograd.backward_api import grad  # noqa: F401,E402
 # the modules that register the rest of the reference's registry ops
 from . import models, quantize, serving  # noqa: F401,E402
 

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...amp import maybe_autocast_arrays
 from ...core import random_state
 from ...core.dtype import get_default_dtype, to_torch_dtype
 from ...ops.op import apply, register_op
@@ -47,6 +48,7 @@ register_op("linear_op", _linear, "linear")
 
 def linear(x: torch.Tensor, weight: torch.Tensor,
            bias: Optional[torch.Tensor] = None, name=None) -> torch.Tensor:
+    x, weight, bias = maybe_autocast_arrays(x, weight, bias, op="linear")
     return apply("linear_op", x, weight, bias)
 
 

@@ -13,9 +13,16 @@
 //
 // The learning rate and the step number are read from device memory (0-dim
 // float32 tensors), so a CUDA graph of the update takes each replay's
-// values.  All arithmetic is f32, in this order and rounded at each
-// operation (the _rn intrinsics keep nvcc from contracting it into FMAs),
-// which is the order of the plain version in fused_update.py:
+// values.  So is the overflow flag of dynamic loss scaling (amp.GradScaler;
+// a 0-dim float32, null without a scaler): where it is nonzero every block
+// returns before it reads or writes p, m1 or m2, so an overflowed step
+// leaves the whole state bitwise as it was, without a host sync (the
+// reference discards the update with a select,
+// paddle_tpu/optimizer/optimizer.py:139-148).
+//
+// All arithmetic is f32, in this order and rounded at each operation (the
+// _rn intrinsics keep nvcc from contracting it into FMAs), which is the
+// order of the plain version in fused_update.py:
 //
 //   bc1 = 1 - b1^step, bc2 = 1 - b2^step           (powf, f32)
 //   keep = 1 - lr * coeff                           (where decay is set)
@@ -139,7 +146,9 @@ __global__ void __launch_bounds__(kThreads)
     fused_update_kernel(const Entry* __restrict__ table,
                         const int64_t* __restrict__ prefix, int n_tensors,
                         const float* __restrict__ lr_p,
-                        const float* __restrict__ step_p, Hyper h) {
+                        const float* __restrict__ step_p,
+                        const float* __restrict__ skip_p, Hyper h) {
+  if (skip_p != nullptr && *skip_p != 0.f) return;
   // the tensor of this block's chunk: prefix[t] <= chunk < prefix[t + 1]
   const int64_t chunk = blockIdx.x;
   int lo = 0, hi = n_tensors - 1;
@@ -246,12 +255,13 @@ __global__ void fused_update_set_grads_kernel(Entry* table, GradPatch patch,
 template <int OP, typename P, typename M>
 cudaError_t launch(const void* table, const void* prefix, int n_tensors,
                    long long n_chunks, const void* lr, const void* step,
-                   Hyper h, cudaStream_t stream) {
+                   const void* skip, Hyper h, cudaStream_t stream) {
   fused_update_kernel<OP, P, M>
       <<<dim3(static_cast<unsigned>(n_chunks)), kThreads, 0, stream>>>(
           static_cast<const Entry*>(table),
           static_cast<const int64_t*>(prefix), n_tensors,
-          static_cast<const float*>(lr), static_cast<const float*>(step), h);
+          static_cast<const float*>(lr), static_cast<const float*>(step),
+          static_cast<const float*>(skip), h);
   return cudaGetLastError();
 }
 
@@ -271,29 +281,31 @@ const char* fused_update_error_string(int code) {
 
 // table: n_tensors Entries on the device; prefix: n_tensors + 1 int64
 // chunk counts (prefix[0] = 0, prefix[n] = n_chunks); lr, step: 0-dim f32
-// on the device.  op: 0 SGD, 1 Adam (AdamW: Adam with decay flags and
-// coeff).  p_dtype (of p and g) and m_dtype (of m1 and m2): 0 float32, 1
+// on the device; skip: a 0-dim f32 on the device (nonzero: leave every
+// tensor as it is) or null.  op: 0 SGD, 1 Adam (AdamW: Adam with decay
+// flags and coeff).  p_dtype (of p and g) and m_dtype (of m1 and m2): 0 float32, 1
 // float16, 2 bfloat16; the groups are (f32, f32), (f16, f16), (bf16,
 // bf16), (f16, f32), (bf16, f32), and SGD ignores m_dtype.  Returns
 // cudaGetLastError() after the launch (0 = launched), or
 // cudaErrorInvalidValue for another group or op, or a grid past 2^31 - 1
 // blocks.
 int fused_update(const void* table, const void* prefix, int n_tensors,
-                 long long n_chunks, const void* lr, const void* step, int op,
-                 int p_dtype, int m_dtype, float b1, float omb1, float b2,
-                 float omb2, float eps, float coeff, void* stream) {
+                 long long n_chunks, const void* lr, const void* step,
+                 const void* skip, int op, int p_dtype, int m_dtype,
+                 float b1, float omb1, float b2, float omb2, float eps,
+                 float coeff, void* stream) {
   if (n_chunks <= 0 || n_chunks > 0x7fffffffLL || n_tensors <= 0)
     return cudaErrorInvalidValue;
   const Hyper h{b1, omb1, b2, omb2, eps, coeff};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (op == kSgd) {
     switch (p_dtype) {
-      case 0: return launch<kSgd, float, float>(table, prefix, n_tensors,
-                                                n_chunks, lr, step, h, s);
-      case 1: return launch<kSgd, __half, __half>(table, prefix, n_tensors,
-                                                  n_chunks, lr, step, h, s);
+      case 0: return launch<kSgd, float, float>(
+          table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
+      case 1: return launch<kSgd, __half, __half>(
+          table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
       case 2: return launch<kSgd, __nv_bfloat16, __nv_bfloat16>(
-          table, prefix, n_tensors, n_chunks, lr, step, h, s);
+          table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
       default: return cudaErrorInvalidValue;
     }
   }
@@ -301,15 +313,15 @@ int fused_update(const void* table, const void* prefix, int n_tensors,
   const int group = p_dtype * 3 + m_dtype;
   switch (group) {
     case 0 * 3 + 0: return launch<kAdam, float, float>(
-        table, prefix, n_tensors, n_chunks, lr, step, h, s);
+        table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
     case 1 * 3 + 1: return launch<kAdam, __half, __half>(
-        table, prefix, n_tensors, n_chunks, lr, step, h, s);
+        table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
     case 2 * 3 + 2: return launch<kAdam, __nv_bfloat16, __nv_bfloat16>(
-        table, prefix, n_tensors, n_chunks, lr, step, h, s);
+        table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
     case 1 * 3 + 0: return launch<kAdam, __half, float>(
-        table, prefix, n_tensors, n_chunks, lr, step, h, s);
+        table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
     case 2 * 3 + 0: return launch<kAdam, __nv_bfloat16, float>(
-        table, prefix, n_tensors, n_chunks, lr, step, h, s);
+        table, prefix, n_tensors, n_chunks, lr, step, skip, h, s);
     default: return cudaErrorInvalidValue;
   }
 }

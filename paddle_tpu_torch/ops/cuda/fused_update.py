@@ -13,7 +13,13 @@ kernel takes p (and g, which must share p's dtype) in float32, float16 or
 bfloat16 and the moments in p's dtype or float32; anything else raises.
 ``lr`` and ``step`` are 0-dim float32 tensors on the parameters' device:
 the kernel reads them from device memory, so a CUDA graph of the update
-reads each replay's values.
+reads each replay's values.  ``skip`` (dynamic loss scaling's overflow
+flag, ``amp.GradScaler``) is None or a 0-dim float32 tensor there too:
+where it is nonzero, every block of the kernel returns before it touches
+a tensor, and the plain version keeps each old value by a select, so an
+overflowed step leaves the parameters and moments bitwise unchanged with
+no host sync (the reference's ``_select_update``,
+``paddle_tpu/optimizer/optimizer.py:33-37``).
 
 The kernel reads its tensors through a device table (:class:`UpdateTable`,
 an entry (p, g, m1, m2, numel, decay) a tensor, one table a dtype group)
@@ -69,17 +75,27 @@ def _hyper(beta1: float, beta2: float, epsilon: float, coeff: float):
 
 def fused_update_ref(kind: int, params, grads, m1s, m2s, decay, lr, step,
                      beta1: float = 0.9, beta2: float = 0.999,
-                     epsilon: float = 1e-8, coeff: float = 0.0) -> None:
+                     epsilon: float = 1e-8, coeff: float = 0.0,
+                     skip: Optional[torch.Tensor] = None) -> None:
     """Plain version of the kernel, a tensor at a time, in place.  Each
     tensor is upcast to float32 (float64 where p or a moment is float64),
     updated in the kernel's order (``csrc/fused_update.cu``), and each
     output is rounded once to its dtype.  ``lr``/``step`` are 0-dim
     float32 tensors (Python numbers also work); ``decay[i]`` applies
-    ``p *= 1 - lr * coeff`` before the Adam update (AdamW)."""
+    ``p *= 1 - lr * coeff`` before the Adam update (AdamW).  Where
+    ``skip`` (a 0-dim tensor) is nonzero every output keeps its old
+    value."""
+    keep_old = None if skip is None else skip != 0
+
+    def put(dst, val):
+        val = val.to(dst.dtype)
+        dst.copy_(val if keep_old is None
+                  else torch.where(keep_old, dst, val))
+
     if kind == SGD:
         for p, g in zip(params, grads):
             ct = torch.promote_types(p.dtype, torch.float32)
-            p.copy_(p.to(ct) - lr * g.to(ct))
+            put(p, p.to(ct) - lr * g.to(ct))
         return
     b1, b2 = float(beta1), float(beta2)
     bc1 = 1.0 - b1 ** step
@@ -94,9 +110,9 @@ def fused_update_ref(kind: int, params, grads, m1s, m2s, decay, lr, step,
         af = af * b1 + gf * (1.0 - b1)
         bf = bf * b2 + gf * gf * (1.0 - b2)
         pf = pf - lr * (af / bc1) / (torch.sqrt(bf / bc2) + epsilon)
-        p.copy_(pf)
-        m1.copy_(af)
-        m2.copy_(bf)
+        put(p, pf)
+        put(m1, af)
+        put(m2, bf)
 
 
 _LIB = None
@@ -108,7 +124,7 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("fused_update")
         lib.fused_update.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_longlong] + [ctypes.c_void_p] * 3
             + [ctypes.c_int] * 3 + [ctypes.c_float] * 6 + [ctypes.c_void_p])
         lib.fused_update.restype = ctypes.c_int
         lib.fused_update_set_grads.argtypes = [
@@ -188,10 +204,12 @@ class UpdateTable:
                                       pdt, mdt))
 
     def launch(self, grads, lr: torch.Tensor, step: torch.Tensor,
+               skip: Optional[torch.Tensor],
                hyper: Sequence[float]) -> None:
         lib = _lib()
         capturing = torch.cuda.is_current_stream_capturing()
         patch = lib.fused_update_max_patch()
+        skip_ptr = None if skip is None else skip.data_ptr()
         with torch.cuda.device(self.device):
             stream = torch.cuda.current_stream(self.device).cuda_stream
             for grp in self.groups:
@@ -209,12 +227,14 @@ class UpdateTable:
                 _check(lib, lib.fused_update(
                     grp.table.data_ptr(), grp.prefix.data_ptr(),
                     len(grp.index), grp.n_chunks, lr.data_ptr(),
-                    step.data_ptr(), self.kind, grp.p_code, grp.m_code,
+                    step.data_ptr(), skip_ptr, self.kind, grp.p_code,
+                    grp.m_code,
                     *hyper, stream), "fused_update")
                 LAUNCH_COUNTS["fused_update"] += 1
 
 
-def _check_args(kind, params, grads, m1s, m2s, lr, step) -> None:
+def _check_args(kind, params, grads, m1s, m2s, lr, step,
+                skip=None) -> None:
     dev = params[0].device
     for i, (p, g) in enumerate(zip(params, grads)):
         m = [] if kind == SGD else [m1s[i], m2s[i]]
@@ -242,7 +262,10 @@ def _check_args(kind, params, grads, m1s, m2s, lr, step) -> None:
                 f"fused_update: parameter {p.dtype} with moments {mdt} is "
                 f"not a group the kernel takes (float32, float16 or "
                 f"bfloat16 parameters, moments in their dtype or float32)")
-    for name, t in (("lr", lr), ("step", step)):
+    scalars = [("lr", lr), ("step", step)]
+    if skip is not None:
+        scalars.append(("skip", skip))
+    for name, t in scalars:
         if not (isinstance(t, torch.Tensor) and t.dim() == 0
                 and t.dtype == torch.float32 and t.device == dev):
             raise TypeError(f"fused_update: {name} must be a 0-dim float32 "
@@ -272,13 +295,15 @@ def prepare(kind: int, params, m1s, m2s, decay,
 def fused_update(kind: int, params, grads, m1s, m2s, decay, lr, step,
                  beta1: float = 0.9, beta2: float = 0.999,
                  epsilon: float = 1e-8, coeff: float = 0.0,
-                 cache: Optional[Dict] = None) -> None:
+                 cache: Optional[Dict] = None,
+                 skip: Optional[torch.Tensor] = None) -> None:
     """Update ``params`` (and for ADAM the moments ``m1s``/``m2s``) in
     place from ``grads``: SGD ``p -= lr g``; ADAM the Adam update, with
-    ``p *= 1 - lr * coeff`` first where ``decay[i]`` (AdamW).  CPU tensors
-    take :func:`fused_update_ref`; CUDA tensors the kernel, one launch a
-    dtype group.  ``cache`` keeps the tables (a fresh dict rebuilds them
-    each call)."""
+    ``p *= 1 - lr * coeff`` first where ``decay[i]`` (AdamW); nothing
+    where ``skip`` is nonzero.  CPU tensors take
+    :func:`fused_update_ref`; CUDA tensors the kernel, one launch a dtype
+    group.  ``cache`` keeps the tables (a fresh dict rebuilds them each
+    call)."""
     if not params:
         return
     m1s = m1s if kind == ADAM else [None] * len(params)
@@ -287,10 +312,10 @@ def fused_update(kind: int, params, grads, m1s, m2s, decay, lr, step,
     dev = params[0].device
     if dev.type == "cpu":
         return fused_update_ref(kind, params, grads, m1s, m2s, decay, lr,
-                                step, beta1, beta2, epsilon, coeff)
+                                step, beta1, beta2, epsilon, coeff, skip)
     if dev.type != "cuda":
         raise ValueError(f"fused_update: unsupported device {dev}")
-    _check_args(kind, params, grads, m1s, m2s, lr, step)
+    _check_args(kind, params, grads, m1s, m2s, lr, step, skip)
     cache = {} if cache is None else cache
     capturing = torch.cuda.is_current_stream_capturing()
     key = _key(kind, params, m1s, m2s, decay, capturing)
@@ -302,4 +327,5 @@ def fused_update(kind: int, params, grads, m1s, m2s, decay, lr, step,
                 del cache[k]
         table = UpdateTable(kind, params, m1s, m2s, decay)
         cache[key] = table
-    table.launch(grads, lr, step, _hyper(beta1, beta2, epsilon, coeff))
+    table.launch(grads, lr, step, skip,
+                 _hyper(beta1, beta2, epsilon, coeff))

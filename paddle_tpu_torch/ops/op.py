@@ -22,6 +22,7 @@ from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 
+from ..flags import get_flags, on_flag_set
 from .infermeta import INFER_RULES, Meta, ShapeError
 
 __all__ = ["OpDef", "register_op", "get_op", "all_ops", "apply", "apply_op",
@@ -71,6 +72,10 @@ def set_check_shapes(on: bool) -> None:
     _check_shapes = bool(on)
 
 
+set_check_shapes(get_flags("check_shapes"))
+on_flag_set("check_shapes", set_check_shapes)
+
+
 # (op, attrs, input shapes and dtypes) that already passed their rule: the
 # rules are pure, so a repeated signature skips them
 _meta_ok_cache: Dict[Tuple, bool] = {}
@@ -102,12 +107,22 @@ def _run_infer_meta(op: OpDef, args, kwargs) -> None:
             _meta_ok_cache[sig] = True
 
 
+# the numerics monitor's probe (amp/debugging.py, FLAGS_check_numerics),
+# called as NUMERICS_HOOK(op name, args, output) after each op; None when
+# disarmed (one attribute check a call)
+NUMERICS_HOOK = None
+
+
 def apply_op(op: OpDef, *args, **kwargs) -> Any:
     """Run ``op`` on ``args`` (tensors, Python scalars or None) with its
     static attributes ``kwargs``; torch records the backward."""
     if _check_shapes:
         _run_infer_meta(op, args, kwargs)
-    return op.fwd(*args, **kwargs)
+    out = op.fwd(*args, **kwargs)
+    hook = NUMERICS_HOOK
+    if hook is not None:
+        hook(op.name, args, out)
+    return out
 
 
 def apply(name: str, *args, **kwargs) -> Any:

@@ -57,6 +57,7 @@ from ..flags import get_flags
 from ..jit import compile_cache as _cc
 from ..jit.api import CapturedGraph
 from ..nn.functional import linear
+from ..utils import failpoint as _fp
 from .attention import PagedCacheView, paged_kv_copy, use_rpa_kernel
 from .control_plane import INTERACTIVE, InvalidRequestError
 from .kv_cache import PagedKVCache
@@ -388,6 +389,11 @@ class ServingEngine:
         self._join_warmup()
         kind, payload = self.scheduler.next_plan()
         try:
+            if _fp.ACTIVE:
+                # chaos: an engine death mid-traffic ("serving.step=error")
+                # is raised on the host, before any replay, and reported
+                # by health_snapshot
+                _fp.inject("serving.step")
             with self._eval_mode():
                 if kind == "prefill":
                     self._run_prefill(*payload)

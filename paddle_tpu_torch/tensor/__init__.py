@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from . import (attribute, creation, einsum_mod, linalg, logic,  # noqa: F401
-               manipulation, math, random, search, stat)
+from . import (attribute, creation, einsum_mod, extension,  # noqa: F401
+               linalg, logic, manipulation, math, random, search, stat)
 from .attribute import (einsum, imag, is_complex, is_floating_point,  # noqa: F401
                         is_integer, rank, real)
 from .creation import *  # noqa: F401,F403
+from .extension import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .logic import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -24,7 +25,7 @@ from .search import *  # noqa: F401,F403
 from .stat import *  # noqa: F401,F403
 
 _SOURCES = [math, manipulation, linalg, logic, search, stat, creation,
-            random, attribute]
+            random, attribute, extension]
 
 # module-level in-place variants (the reference exports abs_, cos_, ...):
 # the out-of-place function, its result written back into x

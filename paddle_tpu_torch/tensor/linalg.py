@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import torch
 
+from ..amp import maybe_autocast_arrays
 from ..core import random_state
 from ..ops.op import apply, register_many, register_op
 from ._helpers import as_tensor
@@ -79,6 +80,7 @@ register_many("solve", {"solve_op": torch.linalg.solve,
 
 
 def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    x, y = maybe_autocast_arrays(x, y, op="matmul")
     return apply("matmul_op", x, y, transpose_x=bool(transpose_x),
                  transpose_y=bool(transpose_y))
 

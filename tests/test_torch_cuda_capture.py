@@ -147,6 +147,73 @@ def test_each_clip_captures(cuda_device, clip):
 
 
 @pytest.mark.gpu
+def test_scaler_steps_run_without_a_host_sync(cuda_device):
+    """O2 float16 with dynamic loss scaling on the card: step 1 overflows
+    at 2^40 and leaves every parameter, moment and the step counter
+    bitwise; steps 2-4 (scale, backward, unscale_, step, update) run under
+    torch.cuda.set_sync_debug_mode("error"), their losses finite and
+    falling; f32 moments (the (float16, float32) group)."""
+    from paddle_tpu_torch import amp
+    card, _ = tiny_pair()
+    amp.decorate(card, level="O2", dtype="float16")
+    opt = AdamW(learning_rate=1e-3, parameters=card.parameters(),
+                weight_decay=0.01, multi_precision=True)
+    scaler = amp.GradScaler(init_loss_scaling=2.0 ** 40,
+                            decr_ratio=2.0 ** -30)
+    ids, labels = (x.to(cuda_device) for x in train_batch())
+
+    def step():
+        loss = lm_loss(card, ids, labels)
+        scaler.scale(loss).backward()
+        scaler.unscale_(opt)
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    before = [p.detach().clone() for p in card.parameters()]
+    step()
+    assert scaler._found_inf and int(opt._global_step) == 0
+    for p, old in zip(card.parameters(), before):
+        assert torch.equal(p, old)
+    assert scaler.get_init_loss_scaling() == 2.0 ** 10
+    losses = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            losses.append(step())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses = [x.item() for x in losses]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0], losses
+    assert int(opt._global_step) == 3 and not scaler._found_inf
+    assert all(m.dtype == torch.float32
+               for m in opt._accumulators["moment1"].values())
+
+
+@pytest.mark.gpu
+def test_captured_train_step_passes_no_overflow_flag(cuda_device,
+                                                     monkeypatch):
+    """TrainStepCapture's update takes no flag (the reference captures no
+    scaler), so its replay launches the kernels it launched before the
+    flag existed."""
+    from paddle_tpu_torch.ops.cuda import fused_update as fu
+    seen = []
+    real = fu.fused_update
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("skip"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(fu, "fused_update", spy)
+    card, _ = tiny_pair()
+    ids, labels = (x.to(cuda_device) for x in train_batch())
+    step = TrainStepCapture(card, optimizer_for(card), lm_loss)
+    step(ids, labels)
+    assert seen and all(s is None for s in seen)
+
+
+@pytest.mark.gpu
 def test_captured_train_step_warmup_moves_no_state(cuda_device):
     card, _ = tiny_pair()
     opt = optimizer_for(card)

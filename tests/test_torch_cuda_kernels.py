@@ -838,6 +838,47 @@ def test_fused_update_matches_plain_version(cuda_device, kind, group):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["sgd", "adamw"])
+@pytest.mark.parametrize("group", sorted(FU_GROUPS))
+def test_fused_update_overflow_flag(cuda_device, kind, group):
+    """The loss scaler's flag (a 0-dim f32 on the card): set, every p, m1
+    and m2 stays bitwise as it was, in the kernel and in the plain
+    version; clear, the kernel's result is bitwise the null flag's and
+    within one ulp (16-bit) or 1e-6 (f32) of the plain version's."""
+    p_dtype, m_dtype = FU_GROUPS[group]
+    if kind == "sgd" and m_dtype != p_dtype:
+        pytest.skip("SGD keeps no moments")
+    sizes = [1, 4099, 7, 65541]
+    fu, (a, b), decay = fu_case(cuda_device, kind, p_dtype, m_dtype, sizes)
+    _, (c, _), _ = fu_case(cuda_device, kind, p_dtype, m_dtype, sizes)
+    op = fu.SGD if kind == "sgd" else fu.ADAM
+    ms = (lambda t: (t[2], t[3])) if op else (lambda t: (None, None))
+    kw = dict(coeff=0.1)
+    lr = torch.tensor(1e-2, device=cuda_device)
+    st = torch.tensor(1.0, device=cuda_device)
+    flag = torch.ones((), device=cuda_device)
+    before = [[x.clone() for x in lst] for lst in a]
+    fu.fused_update(op, a[0], a[1], *ms(a), decay, lr, st, skip=flag, **kw)
+    fu.fused_update_ref(op, b[0], b[1], *ms(b), decay, lr, st, skip=flag,
+                        **kw)
+    torch.cuda.synchronize()
+    for got_set in (a, b):
+        for j in ((0, 2, 3) if op else (0,)):
+            for got, old in zip(got_set[j], before[j]):
+                assert torch.equal(got, old)
+    flag.zero_()
+    fu.fused_update(op, a[0], a[1], *ms(a), decay, lr, st, skip=flag, **kw)
+    fu.fused_update(op, c[0], c[1], *ms(c), decay, lr, st, **kw)
+    fu.fused_update_ref(op, b[0], b[1], *ms(b), decay, lr, st, skip=flag,
+                        **kw)
+    torch.cuda.synchronize()
+    for j in ((0, 2, 3) if op else (0,)):
+        for i in range(len(sizes)):
+            assert torch.equal(a[j][i], c[j][i])
+            fu_close(a[j][i], b[j][i], f"[{j}][{i}]")
+
+
+@pytest.mark.gpu
 def test_fused_update_at_a_llama_shape(cuda_device):
     """4096 x 11008 in bf16 (AdamW, decay) and with f32 moments: within one
     ulp of the plain version."""

@@ -166,7 +166,8 @@ def test_an_optimizer_with_its_own_update_prepares_no_table(monkeypatch):
     class Heavy(topt.Optimizer):
         _STATE_NAMES = ["velocity"]
 
-        def _update(self, lr, params, grads, states, step):
+        def _update(self, lr, params, grads, states, step, skip=None,
+                    group=0):
             for p, g, v in zip(params, grads, states[0]):
                 v.mul_(0.9).add_(g)
                 p.sub_(lr * v)

@@ -69,13 +69,17 @@ def test_importing_the_port_loads_no_jax():
         "paddle_tpu_torch.quantize.core, "
         "paddle_tpu_torch.quantize.calibration, "
         "paddle_tpu_torch.quantize.layers, "
-        "paddle_tpu_torch.ops.cuda.quant_matmul\n"
+        "paddle_tpu_torch.ops.cuda.quant_matmul, paddle_tpu_torch.amp, "
+        "paddle_tpu_torch.amp.debugging, paddle_tpu_torch.autograd, "
+        "paddle_tpu_torch.core.tensor, paddle_tpu_torch.utils.failpoint, "
+        "paddle_tpu_torch.utils.retry, paddle_tpu_torch.tensor.extension\n"
         "new = set(sys.modules) - before\n"
         "bad = sorted(m for m in new if m == 'jax' or m.startswith('jax.') "
         "or m == 'paddle_tpu' or m.startswith('paddle_tpu.'))\n"
         "assert 'paddle_tpu_torch.serving.engine' in new\n"
         "assert 'paddle_tpu_torch.optimizer.optimizer' in new\n"
         "assert 'paddle_tpu_torch.quantize.layers' in new\n"
+        "assert 'paddle_tpu_torch.utils.failpoint' in new\n"
         "print(bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -196,9 +196,13 @@ def test_optimizer_trajectory_matches_reference(case):
 
 
 def test_optimizer_refuses_parameter_groups():
+    """Parameter groups are ported: a group without its 'params' list is
+    what the optimizer refuses now."""
     p = torch.nn.Parameter(torch.zeros(2))
-    with pytest.raises(TypeError, match="parameter groups"):
-        topt.AdamW(parameters=[{"params": [p]}])
+    with pytest.raises(TypeError, match="parameter group"):
+        topt.AdamW(parameters=[{"learning_rate": 0.5}])
+    opt = topt.AdamW(parameters=[{"params": [p]}])
+    assert opt._parameter_list == [p]
 
 
 def test_moments_follow_multi_precision():
