@@ -8,7 +8,10 @@ and prints no result line):
 
 1. device — the card's name, count, and ``nvidia-smi`` name/power limit;
 2. build  — nvcc compiles every kernel source of the package (sm_90a), one
-   process per source, all started together, and reports ptxas's
+   process per source, all started together (a library already in the
+   kernel cache, ``FLAGS_compile_cache_dir``, is reused with the nvcc
+   report kept beside it, so a second run in one checkout builds nothing
+   and reports the same), and reports ptxas's
    registers and spills of each kernel (none may spill in a wgmma kernel,
    a head_dim-256 instantiation, a decode kernel or a tensor-core
    quantized matmul), the wgmma (HGMMA) and TMA-load (UTMALDG)
@@ -113,7 +116,30 @@ and prints no result line):
    the nn surface (Sequential of Linear 4096x11008, GELU, Dropout,
    Linear, LayerNorm) takes 3 AdamW steps with ``clip_grad_norm_`` on
    (8, 512, 4096) f32 inputs, its first step with dropout off equal to
-   the CPU's.
+   the CPU's;
+13. fit and sharded checkpoints — (a) ``hapi.Model.fit`` of the train
+   cell's Llama (its width and depth, seq 4096, batch 1, bf16, AdamW over
+   a cosine ``optimizer.lr`` schedule stepped by the LRScheduler
+   callback) on a ``TensorDataset`` of 8 seeded sequences, shuffled,
+   through two DataLoader worker processes and the pin-memory stager:
+   losses finite, each flash kernel once a layer a step and the fused
+   update once a step, every batch on the card equal to its host data;
+   fit's step ms and input wait beside phase 5's eager step; (b) the
+   model's and optimizer's state (29.5 GB) saved by ``save_state_dict``
+   before the fit and, asynchronously, after step 4 (seconds blocked,
+   the writer's seconds, steps with the write in flight against
+   without): the step-4 checkpoint loaded into the live model bitwise
+   equal to each tensor's CRC32 at step 4, the resumed step 5 bitwise
+   the uninterrupted one, the start point loaded and the recorded order
+   replayed by a bare eager loop with bitwise fit's losses, a shard
+   corrupted on read (``ckpt.shard.read``) rejected by name; (c) a child
+   process on the same kernel cache builds every source with no nvcc
+   process and phase 2's registers and spills, and ``sweep`` of a copy
+   of the cache evicts the least recently used library with its report;
+   (d) ``Model.summary`` and ``hapi.flops`` of the model at seq 4096.
+   Keeps the start point in /dev/shm and the step-4 checkpoint in the
+   temporary directory (29.5 GB free in each, and twice that in host
+   memory).
 
 The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 ``launches`` counted on the path named by its ``launches_in``); the last is
@@ -123,10 +149,12 @@ The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 from __future__ import annotations
 
 import json
+import logging
 import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -214,6 +242,9 @@ KERNEL_NAMES = {
     "qmm_i4": r"qmm_(tc|wg|skinny|tiled)_kernel",
     "fused_update": r"fused_update_kernel"}
 
+# numbers a phase measures that a later phase prints beside its own
+MEASURED: dict = {}
+
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
@@ -259,6 +290,23 @@ def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
 
 # -- phase 2: the build's report ------------------------------------------
 
+def ptxas_rows(text: str) -> dict:
+    """{mangled kernel: (registers, spill store bytes)} of nvcc's
+    report."""
+    kernel, rows = None, {}
+    for line in text.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and kernel:
+            rows.setdefault(kernel, [None, 0])[1] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            rows.setdefault(kernel, [None, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in rows.items()}
+
+
 def build_report(lib: str, info: dict) -> None:
     """ptxas's registers and spill bytes of each kernel of a library (it
     raises where a warp-specialised kernel, a head_dim-256 instantiation or
@@ -269,17 +317,8 @@ def build_report(lib: str, info: dict) -> None:
     warp-specialised ones."""
     from paddle_tpu_torch.ops.cuda import _build
     tools = Path(_build._nvcc()).parent
-    kernel, rows = None, {}
-    for line in info["ptxas"].splitlines():
-        m = re.search(r"entry function '(\S+)'", line)
-        if m:
-            kernel = m.group(1)
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m and kernel:
-            rows.setdefault(kernel, {})["spill"] = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if m and kernel:
-            rows.setdefault(kernel, {})["regs"] = int(m.group(1))
+    rows = {k: {"regs": r, "spill": sp}
+            for k, (r, sp) in ptxas_rows(info["ptxas"]).items()}
     mangled = sorted(rows)
     names = subprocess.run([str(tools / "cu++filt")],
                            input="\n".join(mangled), capture_output=True,
@@ -1881,7 +1920,7 @@ def phase_serve(card):
                                                llama_7b_config,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/12] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/13] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -2023,7 +2062,7 @@ def phase_train(card, peak_ops):
     hidden, _, _, seq, _, batch = TRAIN_DIMS
     layers, total, model, opt, step = train_setup()
     n_params = model.num_params()
-    log(f"[5/12] train Llama-7B width, {layers} of 32 layers (bench.py's "
+    log(f"[5/13] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
         f"bf16, AdamW: eager, then TrainStepCapture")
     steps = 3
@@ -2039,6 +2078,7 @@ def phase_train(card, peak_ops):
         losses.append(step())
     torch.cuda.synchronize()
     step_s = (time.perf_counter() - t0) / steps
+    MEASURED["train_eager_step_ms"] = step_s * 1e3
     launches = dict(LAUNCH_COUNTS)
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
@@ -2219,7 +2259,7 @@ def phase_packed(card):
     layers, bf16 = 32, torch.bfloat16
     cu = cu_of(PACKED_DOCS)
     t, longest, scale = int(cu[-1]), max(PACKED_DOCS), 1.0 / math.sqrt(d)
-    log(f"[6/12] packed attention: flash_attn_unpadded forward and backward "
+    log(f"[6/13] packed attention: flash_attn_unpadded forward and backward "
         f"at Llama-7B attention width ({heads} heads x {d}), {layers} "
         f"layers, T={t} in documents {list(PACKED_DOCS)}, bf16, causal")
     inputs = []
@@ -2309,7 +2349,7 @@ def phase_train_parity():
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.optimizer import AdamW
-    log("[7/12] train parity: tiny f32 Llama, card vs CPU")
+    log("[7/13] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
     on_card = LlamaForCausalLM(cfg, seed=SEED)
     on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
@@ -2536,7 +2576,7 @@ def phase_quant_serve(card):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[8/12] quantized serve: Llama-7B (full width and depth), (a) int8 "
+    log("[8/13] quantized serve: Llama-7B (full width and depth), (a) int8 "
         "weights + int8 KV")
     launches = quant_serve_run(card, 8, "int8")
     log("  (b) int4 weights + bf16 KV")
@@ -2995,7 +3035,7 @@ def core_on_card() -> None:
 
 
 def phase_amp(card, peak_ops) -> None:
-    log("[9/12] amp train: O2 float16 with dynamic loss scaling at the "
+    log("[9/13] amp train: O2 float16 with dynamic loss scaling at the "
         "train cell's width and depth, O1, resume, the core on the card")
     t0 = time.perf_counter()
     amp_o2_full(card, peak_ops)
@@ -3018,7 +3058,7 @@ def phase_profiles(card) -> None:
                                                llama_7b_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[10/12] where the time goes (torch.profiler, after the timed phases)")
+    log("[10/13] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
     prompts = serve_prompts(SEED, cfg.vocab_size)
     for bits, kv, label in ((None, "off", "bf16"),
@@ -3672,7 +3712,7 @@ def phase_ops(card):
     shapes, each launching its kernel."""
     from paddle_tpu_torch.ops.op import all_ops
     import paddle_tpu_torch.nn.functional as F
-    log("[11/12] ops: the registry on the card vs the CPU")
+    log("[11/13] ops: the registry on the card vs the CPU")
     t0 = time.perf_counter()
     cases = op_cases(full=True)
     nn_names = set(nn_op_cases(False))
@@ -3914,10 +3954,499 @@ def nn_surface_training(card):
 
 
 def phase_nn(card):
-    log("[12/12] nn surface and checkpoints, at full width")
+    log("[12/13] nn surface and checkpoints, at full width")
     t0 = time.perf_counter()
     out = flagship_round_trip(card)
     nn_surface_training(card)
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- phase 13: fit and sharded checkpoints ----------------------------------
+
+# the fit's data: FIT_SEQS seeded sequences of seq + 1 token ids, one a
+# step; the asynchronous checkpoint is taken after fit step FIT_SAVE_AT
+FIT_SEQS = 8
+FIT_SAVE_AT = 4
+
+
+def host_words(t: torch.Tensor) -> np.ndarray:
+    """A tensor's raw bytes on the host, as a flat uint8 array."""
+    host = t.detach().cpu()
+    if host.dtype == torch.bfloat16:
+        host = host.view(torch.int16)
+    return host.reshape(-1).numpy().view(np.uint8)
+
+
+def state_crcs(state) -> dict:
+    """CRC32 of each tensor's raw bytes, read back a few tensors at a time
+    (CRC32 releases the GIL: four threads)."""
+    import zlib
+    from concurrent.futures import ThreadPoolExecutor
+    names = [k for k, v in state.items() if isinstance(v, torch.Tensor)]
+    out = {}
+    with ThreadPoolExecutor(4) as pool:
+        for i in range(0, len(names), 8):
+            chunk = names[i:i + 8]
+            words = [host_words(state[k]) for k in chunk]
+            out.update(zip(chunk, pool.map(zlib.crc32, words)))
+    return out
+
+
+class CountingHandler(logging.Handler):
+    """Counts the records logged to it (the worker pool logs one warning
+    a respawned worker)."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.WARNING)
+        self.count = 0
+
+    def emit(self, record) -> None:
+        self.count += 1
+
+
+def fit_setup(cfg, seq: int, device=None):
+    """The train cell's Llama (seed 0), bench_llama's AdamW over a cosine
+    ``optimizer.lr`` schedule, every moment made (zeros) so the start
+    point holds them, and the fit's data: FIT_SEQS seeded sequences of
+    seq + 1 ids in a ``TensorDataset`` (inputs [:seq], labels [1:]).
+    ``paddle_tpu_torch.seed`` fixes the CPU generator the shuffle draws
+    from."""
+    import paddle_tpu_torch as P
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW, lr
+    P.seed(SEED)
+    model = LlamaForCausalLM(cfg, device=device, seed=SEED)
+    sched = lr.CosineAnnealingDecay(1e-4, T_max=FIT_SEQS)
+    opt = AdamW(learning_rate=sched, parameters=model.parameters(),
+                weight_decay=0.01)
+    opt._prepare_update(model.parameters())
+    tokens = np.random.RandomState(SEED + 13).randint(
+        0, cfg.vocab_size, (FIT_SEQS, seq + 1)).astype(np.int64)
+    data = io.TensorDataset([tokens[:, :seq], tokens[:, 1:]])
+    return model, opt, sched, tokens, data
+
+
+def fit_state(model, opt, sched, params_only: bool = False) -> dict:
+    """The checkpoint's state dict: the parameters and the moments (the
+    live tensors: a load fills them in place), the optimizer's step and
+    the schedule's position as 0-dim host tensors."""
+    state = dict(model.state_dict())
+    if params_only:
+        return state
+    state.update({f"opt.{k}": v for k, v in opt.state_dict().items()
+                  if isinstance(v, torch.Tensor)})
+    state["opt.global_step"] = torch.tensor(int(opt._global_step))
+    state["sched.last_epoch"] = torch.tensor(sched.last_epoch)
+    state["sched.last_lr"] = torch.tensor(sched.last_lr,
+                                          dtype=torch.float64)
+    return state
+
+
+def restore_scalars(state, opt, sched) -> None:
+    opt._global_step = int(state["opt.global_step"])
+    sched.last_epoch = int(state["sched.last_epoch"])
+    sched.last_lr = float(state["sched.last_lr"])
+
+
+def fit_probe(tokens, seq, save_dir, state_fn):
+    """A ``hapi`` callback (first in fit's list) that predicts the
+    shuffle's order at the epoch's start from a copy of the CPU
+    generator, times each step (``on_train_batch_begin`` to
+    ``on_train_batch_end``, which follows train_batch's read of the loss)
+    and the input wait before it (the previous step's last callback to
+    this step's batch in hand), records each loss, and before step
+    FIT_SAVE_AT + 1 (after step FIT_SAVE_AT and its LRScheduler step)
+    takes each tensor's CRC32 and starts the asynchronous save; after
+    step FIT_SAVE_AT + 1 the parameters' CRC32, for the resume check.
+    A watcher thread notes when the save's writer thread ends."""
+    from paddle_tpu_torch.core import random_state
+    from paddle_tpu_torch.distributed.checkpoint import save_state_dict
+    from paddle_tpu_torch.hapi.callbacks import Callback
+
+    class Probe(Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            g = torch.Generator()
+            g.set_state(random_state.generator("cpu").get_state())
+            self.order = torch.randperm(len(tokens), generator=g).tolist()
+            self.ready, self.begin, self.end = [], [], []
+            self.after = [time.perf_counter()]
+            self.losses, self.in_flight = [], []
+            self.writer = None
+
+        def on_train_batch_begin(self, step, logs=None):
+            # the batch is here: fit takes it from the loader first
+            self.ready.append(time.perf_counter())
+            if step == FIT_SAVE_AT:
+                # after step FIT_SAVE_AT and its LRScheduler step
+                state = state_fn()
+                self.crc_at_save = state_crcs(state)
+                t0 = time.perf_counter()
+                save_state_dict(state, save_dir, async_save=True)
+                self.save_returned = time.perf_counter()
+                self.save_block_s = self.save_returned - t0
+                # a watcher thread notes when the writer thread ends
+                self.writer = next(t for t in threading.enumerate()
+                                   if t.name == "distcp-async-save")
+                self.watcher = threading.Thread(target=self._watch,
+                                                daemon=True)
+                self.watcher.start()
+            self.begin.append(time.perf_counter())
+
+        def _watch(self):
+            self.writer.join()
+            self.writer_done = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            # the step ended in train_batch's read of the loss, which
+            # waits for the update too
+            self.end.append(time.perf_counter())
+            self.losses.append(logs["loss"])
+            self.in_flight.append(self.writer is not None and
+                                  self.writer.is_alive())
+            if step == FIT_SAVE_AT:
+                self.params_after = state_crcs(state_fn(params_only=True))
+            self.after.append(time.perf_counter())
+
+    return Probe()
+
+
+def checked_model(model, tokens, seq, probe):
+    """``hapi.Model`` whose ``train_batch`` then holds the batch that
+    reached the card to the host data of its index in the probe's order
+    (after the step, so a batch overwritten while the model read it shows
+    too)."""
+    from paddle_tpu_torch import hapi
+    device = next(iter(model.parameters())).device
+
+    class CheckedModel(hapi.Model):
+        def train_batch(self, inputs, labels=None, update=True):
+            out = super().train_batch(inputs, labels, update)
+            k = len(self.checked)
+            want = torch.from_numpy(tokens[probe.order[k]])
+            ids, lab = inputs[0], labels[0]
+            self.checked.append(
+                ids.device == lab.device == device
+                and torch.equal(ids.cpu()[0], want[:seq])
+                and torch.equal(lab.cpu()[0], want[1:]))
+            return out
+
+    hm = CheckedModel(model)
+    hm.checked = []
+    return hm
+
+
+def summary_and_flops(model, seq: int) -> None:
+    """(d) ``Model.summary`` and ``hapi.flops`` at (1, seq) token ids:
+    the trainable count equal to the parameters' numel and the total,
+    the FLOPs equal to the Linears' products over seq tokens plus the
+    attention's 4·H·seq²·D a layer.  The tables go to a buffer; their
+    totals are printed."""
+    import contextlib
+    import io as _io
+    from paddle_tpu_torch import hapi
+    cfg = model.config
+    device = next(iter(model.parameters())).device
+    buf = _io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        info = hapi.Model(model).summary((1, seq), dtype="int64")
+        fl = hapi.flops(model, inputs=torch.zeros(1, seq, dtype=torch.int64,
+                                                   device=device))
+    numel = sum(p.numel() for p in model.parameters())
+    linear = numel - cfg.vocab_size * cfg.hidden_size - \
+        cfg.hidden_size * (2 * cfg.num_hidden_layers + 1)
+    want = 2 * seq * linear + 4 * cfg.num_attention_heads * seq * seq * \
+        cfg.head_dim * cfg.num_hidden_layers
+    rows = sum(1 for line in buf.getvalue().splitlines()
+               if re.match(r"\w+-\d+ ", line))
+    log(f"  (d) summary: {rows} leaf rows, total {info['total_params']:,}, "
+        f"trainable {info['trainable_params']:,} parameters (sum of numel "
+        f"{numel:,}); flops of one forward at (1, {seq}): {fl:,} "
+        f"({fl / 1e12:.3f} TFLOP; Linear products + attention, "
+        f"{want:,} by formula)")
+    if not info["trainable_params"] == info["total_params"] == numel:
+        raise AssertionError(f"summary counts {info}, numel {numel}")
+    if fl != want:
+        raise AssertionError(f"flops {fl} != {want}")
+
+
+def fit_and_checkpoints(card, cfg, seq: int, eager_step_ms,
+                        device=None) -> dict:
+    """(a) fit, (b) sharded checkpoints and resume, (d) summary and flops
+    of the train cell's Llama; returns the numbers it printed."""
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.distributed import checkpoint as dcp
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from paddle_tpu_torch.utils import failpoint
+    model, opt, sched, tokens, data = fit_setup(cfg, seq, device)
+    dev = next(iter(model.parameters())).device
+    on_card = dev.type == "cuda"
+    layers = cfg.num_hidden_layers
+    summary_and_flops(model, seq)
+    state = fit_state(model, opt, sched)
+    nbytes = sum(v.numel() * v.element_size() for v in state.values())
+    # the start point lives in /dev/shm (memory), the step-4 checkpoint
+    # on disk: so the run writes about 43 GB to disk in all (this and
+    # phase 12's file), not 72
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_"))
+    shm = Path(tempfile.mkdtemp(prefix="chip_smoke_fit_", dir="/dev/shm")) \
+        if Path("/dev/shm").is_dir() else None
+    try:
+        need = 1.05 * nbytes
+        mem = int(re.search(r"MemAvailable:\s+(\d+)", Path(
+            "/proc/meminfo").read_text()).group(1)) * 1024
+        short = [f"{where} has {free / 1e9:.2f} GB" for where, free in (
+            (tmp, shutil.disk_usage(tmp).free),
+            ("/dev/shm", shutil.disk_usage(shm).free if shm else 0),
+            ("host memory (MemAvailable)", mem / 2.2)) if free < need]
+        if short:
+            raise RuntimeError(
+                f"phase 13 keeps a {nbytes / 1e9:.2f} GB checkpoint in each "
+                f"of {tmp} and /dev/shm and needs twice that in host "
+                f"memory besides: " + "; ".join(short))
+        start_dir, save_dir = str(shm / "start"), str(tmp / "step4")
+        t0 = time.perf_counter()
+        dcp.save_state_dict(state, start_dir)
+        start_save_s = time.perf_counter() - t0
+        probe = fit_probe(tokens, seq, save_dir,
+                          lambda params_only=False: fit_state(
+                              model, opt, sched, params_only))
+        hm = checked_model(model, tokens, seq, probe)
+        hm.prepare(opt, lambda logits, labels: model.compute_loss(logits,
+                                                                  labels))
+        reset_launch_counts()
+        respawns = CountingHandler()
+        logging.getLogger("paddle_tpu_torch.io").addHandler(respawns)
+        t0 = time.perf_counter()
+        try:
+            hm.fit(data, batch_size=1, shuffle=True, num_workers=2,
+                   epochs=1, verbose=0, callbacks=[probe])
+        finally:
+            logging.getLogger("paddle_tpu_torch.io").removeHandler(respawns)
+        fit_s = time.perf_counter() - t0
+        launches = dict(LAUNCH_COUNTS)
+        in_flight_at_end = probe.in_flight[-1]
+        dcp.wait_save()
+        probe.watcher.join()
+        writer_s = probe.writer_done - probe.save_returned
+        if on_card:
+            # the snapshots' pinned blocks back to the system
+            torch._C._host_emptyCache()
+        losses = probe.losses
+        step_ms = [(e - b) * 1e3 for b, e in zip(probe.begin, probe.end)]
+        wait_ms = [(r - a) * 1e3 for a, r in zip(probe.after, probe.ready)]
+        written = sum(f.stat().st_size for d in (tmp, shm)
+                      for f in d.rglob("*") if f.is_file())
+        log(f"  (a) fit: {len(losses)} steps of batch 1 x {seq} "
+            f"(num_workers=2, shuffle, order {probe.order}) in "
+            f"{fit_s:.2f} s, 0 worker errors, {respawns.count} workers "
+            f"respawned; device batches equal to their host data "
+            f"{sum(hm.checked)} of {len(hm.checked)}; losses "
+            + ", ".join(f"{x:.4f}" for x in losses))
+        log(f"  [{card}] fit step {np.mean(step_ms[1:]):.1f} ms (mean of "
+            f"steps 2-{len(losses)}; each: "
+            + ", ".join(f"{x:.1f}" for x in step_ms)
+            + f"); phase 5's eager step {eager_step_ms:.1f} ms")
+        log(f"  [{card}] input wait (the previous step's last callback to "
+            f"this step's batch in hand): step 1 {wait_ms[0]:.1f} ms (the workers' "
+            f"start), steps 2-{len(losses)} mean "
+            f"{np.mean(wait_ms[1:]):.3f} ms, max {max(wait_ms[1:]):.3f} ms")
+        flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
+        if on_card:
+            log("  launches over the fit: " + ", ".join(
+                f"{n} {launches[n]}" for n in flash + ("fused_update",))
+                + f" ({layers} layers x {len(losses)} steps; one update a "
+                f"step)")
+        # (b) the step-4 checkpoint, then resume
+        with_w = [m for m, f in zip(step_ms[FIT_SAVE_AT:],
+                                    probe.in_flight[FIT_SAVE_AT:]) if f]
+        log(f"  [{card}] (b) start point (async_save=False): "
+            f"{start_save_s:.2f} s; after step {FIT_SAVE_AT} "
+            f"(async_save=True): save_state_dict blocked "
+            f"{probe.save_block_s:.2f} s, the writer "
+            f"{writer_s:.2f} s (still writing at the fit's end: "
+            f"{in_flight_at_end}); step ms with the write in flight "
+            f"{np.mean(with_w) if with_w else float('nan'):.1f} "
+            f"({len(with_w)} steps), without "
+            f"{np.mean(step_ms[1:FIT_SAVE_AT]):.1f} (steps 2-{FIT_SAVE_AT}); "
+            f"{written / 1e9:.3f} GB written in all, the start point to "
+            f"/dev/shm, step {FIT_SAVE_AT}'s to {tmp} "
+            f"({nbytes / 1e9:.3f} GB a checkpoint, {len(state)} tensors)")
+        target = fit_state(model, opt, sched)
+        t0 = time.perf_counter()
+        dcp.load_state_dict(target, save_dir)
+        if on_card:
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        restore_scalars(target, opt, sched)
+        crcs = state_crcs(target)
+        torn = [k for k, v in probe.crc_at_save.items() if crcs[k] != v]
+        i = probe.order[FIT_SAVE_AT]
+        ids = torch.from_numpy(tokens[i:i + 1, :seq]).to(dev)
+        labels = torch.from_numpy(tokens[i:i + 1, 1:]).to(dev)
+        from paddle_tpu_torch.hapi import Model
+        resumed = Model.train_batch(hm, [ids], [labels])
+        params_now = state_crcs(model.state_dict())
+        resume_ok = resumed == losses[FIT_SAVE_AT] and \
+            params_now == probe.params_after
+        log(f"  [{card}] step-{FIT_SAVE_AT} checkpoint loaded into the live "
+            f"model and optimizer in {load_s:.2f} s: {len(crcs)} tensors, "
+            f"{len(torn)} differ from their CRC32 at step {FIT_SAVE_AT}; "
+            f"the resumed step {FIT_SAVE_AT + 1}: loss {resumed!r} vs "
+            f"{losses[FIT_SAVE_AT]!r}, parameters bitwise "
+            f"{params_now == probe.params_after}")
+        # replay from the start point through the bare eager loop
+        target = fit_state(model, opt, sched)
+        t0 = time.perf_counter()
+        dcp.load_state_dict(target, start_dir)
+        start_load_s = time.perf_counter() - t0
+        restore_scalars(target, opt, sched)
+        model.train()
+        replay, replay_ms = [], []
+        for i in probe.order:
+            ids = torch.from_numpy(tokens[i:i + 1, :seq]).to(dev)
+            labels = torch.from_numpy(tokens[i:i + 1, 1:]).to(dev)
+            t0 = time.perf_counter()
+            loss = model.compute_loss(model(ids), labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            replay.append(loss.item())
+            replay_ms.append((time.perf_counter() - t0) * 1e3)
+            sched.step()
+        log(f"  [{card}] start point loaded in {start_load_s:.2f} s; the "
+            f"bare eager loop over the recorded order: losses bitwise "
+            f"fit's {replay == losses}; its step {np.mean(replay_ms[1:]):.1f}"
+            f" ms (mean of steps 2-{len(replay)}) against fit's "
+            f"{np.mean(step_ms[1:]):.1f}")
+        # a shard corrupted on read is rejected by name
+        with open(Path(start_dir) / "metadata.pkl", "rb") as f:
+            meta = dcp.load_pickle_checked(f)
+        name = next(iter(model.state_dict()))
+        bad_file = meta.state[name][0].file_name
+        failpoint.configure("ckpt.shard.read=corrupt,n=1")
+        try:
+            dcp.load_state_dict({name: torch.empty_like(state[name])},
+                                start_dir)
+            rejected = None
+        except dcp.CheckpointCorruptionError as e:
+            rejected = e.files
+        finally:
+            failpoint.disable()
+        log(f"  ckpt.shard.read=corrupt on {name}'s shard: "
+            f"CheckpointCorruptionError naming {rejected}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        if shm is not None:
+            shutil.rmtree(shm, ignore_errors=True)
+    if not all(math.isfinite(x) for x in losses) or \
+            len(losses) != FIT_SEQS:
+        raise AssertionError(f"fit losses {losses}")
+    if respawns.count:
+        raise AssertionError(f"{respawns.count} DataLoader workers died "
+                             f"and were respawned")
+    if not all(hm.checked) or len(hm.checked) != FIT_SEQS:
+        raise AssertionError(f"device batches against their host data: "
+                             f"{hm.checked}")
+    if on_card:
+        want = {**{n: layers * FIT_SEQS for n in flash},
+                "fused_update": FIT_SEQS}
+        got = {n: launches[n] for n in want}
+        if got != want:
+            raise AssertionError(f"fit launches {got}, expected {want}")
+    if torn:
+        raise AssertionError(f"the step-{FIT_SAVE_AT} checkpoint differs "
+                             f"from the state at step {FIT_SAVE_AT}: "
+                             f"{torn[:4]}")
+    if not resume_ok:
+        raise AssertionError("the resumed step differs from the "
+                             "uninterrupted one")
+    if replay != losses:
+        raise AssertionError(f"replayed losses {replay} != fit's {losses}")
+    if rejected != (bad_file,):
+        raise AssertionError(f"corrupt shard {bad_file}: rejected "
+                             f"{rejected}")
+    return {"step_ms": float(np.mean(step_ms[1:])),
+            "wait_ms": float(np.mean(wait_ms[1:])),
+            "save_block_s": probe.save_block_s, "writer_s": writer_s,
+            "load_s": load_s, "gb": written / 1e9}
+
+
+def kernel_cache_warm_start(card, build_s: float, built: dict) -> None:
+    """(c) A child process with this process's FLAGS_compile_cache_dir
+    imports the port and builds every source: no nvcc process, every
+    library a hit, each kernel's registers and spills equal to phase 2's;
+    then ``sweep`` on a copy of the directory evicts the least recently
+    used library with its report (the live directory is not touched)."""
+    import os
+    import shutil
+    import tempfile
+    from paddle_tpu_torch.jit import compile_cache as cc
+    from paddle_tpu_torch.ops.cuda import _build
+    live = str(_build.build_dir())
+    code = ("import json, time; t0 = time.perf_counter()\n"
+            "from paddle_tpu_torch.ops.cuda import _build\n"
+            "from paddle_tpu_torch.jit import compile_cache as cc\n"
+            "logs = _build.build()\n"
+            "print(json.dumps({'seconds': time.perf_counter() - t0,"
+            " 'stats': cc.cache_stats(), 'nvcc_runs':"
+            " _build.STATS['nvcc_runs'], 'ptxas': {n: e['ptxas']"
+            " for n, e in logs.items()}}))")
+    env = dict(os.environ, FLAGS_compile_cache_dir=live,
+               PYTHONPATH=str(Path(__file__).resolve().parent))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f"the warm-start child failed:\n{res.stderr}")
+    child = json.loads(res.stdout.strip().splitlines()[-1])
+    same = {n: ptxas_rows(child["ptxas"][n]) == ptxas_rows(e["ptxas"])
+            for n, e in built.items()}
+    stats = child["stats"]
+    log(f"  (c) [{card}] kernel cache {live}: a child process built "
+        f"{len(child['ptxas'])} sources in {child['seconds']:.2f} s "
+        f"(import included) with {child['nvcc_runs']} nvcc processes, "
+        f"hits {stats['hits']}, misses {stats['misses']}, "
+        f"{stats['bytes'] / 1e6:.1f} MB; phase 2 built in {build_s:.1f} s; "
+        f"registers and spills equal to phase 2's: {all(same.values())}")
+    if child["nvcc_runs"] or stats["misses"] or             stats["hits"] != len(_build.SOURCES) or not all(same.values()):
+        raise AssertionError(f"warm start: {stats}, nvcc runs "
+                             f"{child['nvcc_runs']}, reports equal {same}")
+    with tempfile.TemporaryDirectory() as tmp:
+        copy = Path(tmp) / "kernels"
+        shutil.copytree(live, copy)
+        libs = sorted(copy.glob("lib*.so"),
+                      key=lambda p: _build.sidecar(p).stat().st_mtime)
+        total = sum(p.stat().st_size + _build.sidecar(p).stat().st_size
+                    for p in libs)
+        evicted = cc.sweep(max_bytes=total - 1, cache_dir=str(copy))
+        log(f"  sweep of a copy ({len(libs)} libraries, {total / 1e6:.1f} "
+            f"MB) to {total - 1} bytes evicted {[Path(p).name for p in evicted]}"
+            f" (least recently used: {libs[0].name})")
+        if evicted != [str(libs[0])] or libs[0].exists() or \
+                _build.sidecar(libs[0]).exists() or \
+                not (Path(live) / libs[0].name).exists():
+            raise AssertionError(f"sweep evicted {evicted}")
+
+
+def phase_fit(card, eager_step_ms: float, build_s: float, built: dict):
+    from paddle_tpu_torch.models.llama import LlamaConfig
+    hidden, inter, heads, seq, vocab, batch = TRAIN_DIMS
+    total = torch.cuda.get_device_properties(0).total_memory
+    layers = train_layers(total, hidden, inter, vocab)
+    log(f"[13/13] fit and sharded checkpoints: hapi.Model.fit of the train "
+        f"cell's Llama ({layers} layers, seq {seq}, batch {batch}, bf16) "
+        f"fed by DataLoader workers through the pin-memory stager, "
+        f"checkpointed by save_state_dict")
+    t0 = time.perf_counter()
+    cfg = LlamaConfig(vocab_size=vocab, hidden_size=hidden,
+                      intermediate_size=inter, num_hidden_layers=layers,
+                      num_attention_heads=heads, num_key_value_heads=heads,
+                      max_position_embeddings=seq, dtype="bfloat16")
+    out = fit_and_checkpoints(card, cfg, seq, eager_step_ms)
+    free_cuda()
+    kernel_cache_warm_start(card, build_s, built)
     log(f"  {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3930,7 +4459,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/12] device")
+    log("[1/13] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -3941,15 +4470,21 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/12] build")
+    log("[2/13] build")
+    from paddle_tpu_torch.jit import compile_cache as cc
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
     built = _build.build()
-    log(f"  built {sorted(built)} in {time.perf_counter() - t0:.1f} s")
+    build_s = time.perf_counter() - t0
+    stats = cc.cache_stats()
+    log(f"  built {sorted(built)} in {build_s:.1f} s into {stats['dir']} "
+        f"(kernel cache: {stats['misses']} built, {stats['hits']} reused "
+        f"with their nvcc reports, {_build.STATS['nvcc_runs']} nvcc "
+        f"processes)")
     for kname, info in built.items():
         build_report(kname, info)
 
-    log("[3/12] kernel vs plain version")
+    log("[3/13] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
         phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw) + \
         [phase_fused_update(card, bw)]
@@ -3967,6 +4502,7 @@ def main() -> int:
     phase_profiles(card)
     phase_ops(card)
     phase_nn(card)
+    phase_fit(card, MEASURED["train_eager_step_ms"], build_s, built)
     # on the captured paths: each graph's launches a replay (checked
     # against the profiler in phase 10) times its replays
     launched_in = {"rpa_decode": "captured serve (phase 4)",

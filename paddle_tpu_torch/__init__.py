@@ -31,8 +31,15 @@ captured), and the op surface:
                        saved_tensors_hooks, over torch's engine
   utils/             — the failpoint registry and the retry policy
   core/tensor.py     — the reference Tensor's methods as free functions
-  jit/               — TrainStepCapture (one CUDA graph a batch signature)
-                       and the recapture counters
+  jit/               — TrainStepCapture (one CUDA graph a batch signature),
+                       the recapture counters and the persistent cache of
+                       kernel libraries (FLAGS_compile_cache_dir)
+  io/                — Dataset, samplers, DataLoader (worker processes,
+                       a pin-memory stager to the card)
+  hapi/, metric/     — Model (fit/evaluate/predict, callbacks, save/load),
+                       summary, flops; Accuracy, Precision, Recall, Auc
+  distributed/       — rank and world size; checkpoint/: sharded
+                       save_state_dict (async) and load_state_dict
   regularizer.py     — L1Decay, L2Decay
   ops/op.py,         — the op registry (the reference's tensor ops under
   ops/infermeta.py     their names) and the shape rules that name the op
@@ -73,6 +80,8 @@ from . import autograd, amp, utils  # noqa: F401,E402
 from .autograd.backward_api import grad  # noqa: F401,E402
 # the modules that register the rest of the reference's registry ops
 from . import models, quantize, serving  # noqa: F401,E402
+from . import distributed, hapi, io, metric  # noqa: F401,E402
+from .hapi import Model, flops, summary  # noqa: F401,E402
 
 import torch as _torch  # noqa: E402
 

@@ -55,8 +55,9 @@ class FlagInfo:
 _NO_READER: Dict[str, str] = {
     "jit_max_programs": "the reference's to_static program cache, which "
                         "the port does not have",
-    **dict.fromkeys(("compile_cache_dir", "compile_cache_max_bytes",
-                     "compile_cache_min_compile_secs"), "ROADMAP A4"),
+    "compile_cache_min_compile_secs": "nvcc, which builds the port's "
+                                      "kernel cache, has no compile-time "
+                                      "threshold",
     **dict.fromkeys((
         "telemetry", "telemetry_http_port", "flight_recorder_size",
         "flight_recorder_dir", "device_profiler", "device_profiler_sample_ms",

@@ -8,8 +8,8 @@ bfloat16 array is stored as the pair ``(uint16 array, "bfloat16")``.
 ``_QuantPayload`` leaves (int8/int4 codes and scales) are dequantized at
 load.  pickle names a class by its module path, and the reference's
 payload classes live at ``paddle_tpu.framework.io_utils``: the port reads
-those names into its own classes (``_Unpickler.find_class``) and writes
-them under the reference's names (``_Pickler.save_global``), so each
+those names into its own classes (``RefUnpickler.find_class``) and writes
+them under the reference's names (``RefPickler.save_global``), so each
 package reads the other's files, and neither imports the other.  bf16
 goes through ``uint16`` and ``Tensor.view(torch.bfloat16)``, never numpy's
 bf16 (``ml_dtypes`` is not needed).
@@ -132,24 +132,36 @@ def _unpack(obj: Any, device, return_numpy: bool) -> Any:
     return obj
 
 
-class _Pickler(pickle._Pickler):
+class RefPickler(pickle._Pickler):
     """The pure-Python pickler (its ``save_global`` can be overridden),
-    writing the payload classes under the reference's module path."""
+    writing each class of ``classes`` ({name: class}) under the
+    reference's module path ``module``."""
+
+    def __init__(self, file, protocol: int, module: str, classes) -> None:
+        super().__init__(file, protocol=protocol)
+        self._module, self._classes = module, classes
 
     def save_global(self, obj, name=None):
-        ref = next((n for n, c in _CLASSES.items() if obj is c), None)
+        ref = next((n for n, c in self._classes.items() if obj is c), None)
         if ref is None:
             return super().save_global(obj, name)
-        self.save(_REF_MODULE)
+        self.save(self._module)
         self.save(ref)
         self.write(pickle.STACK_GLOBAL)
         self.memoize(obj)
 
 
-class _Unpickler(pickle.Unpickler):
+class RefUnpickler(pickle.Unpickler):
+    """Reads the names of ``classes`` under ``modules`` (the reference's
+    module path and the port's) into the port's classes."""
+
+    def __init__(self, file, modules, classes) -> None:
+        super().__init__(file)
+        self._modules, self._classes = modules, classes
+
     def find_class(self, module, name):
-        if module in (_REF_MODULE, __name__) and name in _CLASSES:
-            return _CLASSES[name]
+        if module in self._modules and name in self._classes:
+            return self._classes[name]
         return super().find_class(module, name)
 
 
@@ -160,7 +172,7 @@ def save(obj: Any, path: str, protocol: int = _PROTOCOL, **configs) -> None:
     if d:
         os.makedirs(d, exist_ok=True)
     with open(path, "wb") as f:
-        _Pickler(f, protocol=protocol).dump(_pack(obj))
+        RefPickler(f, protocol, _REF_MODULE, _CLASSES).dump(_pack(obj))
 
 
 def load(path: str, **configs) -> Any:
@@ -177,5 +189,5 @@ def load(path: str, **configs) -> Any:
         from ..core.place import resolve_device
         device = resolve_device(configs.get("device"))
     with open(path, "rb") as f:
-        obj = _Unpickler(f).load()
+        obj = RefUnpickler(f, (_REF_MODULE, __name__), _CLASSES).load()
     return _unpack(obj, device, return_numpy)

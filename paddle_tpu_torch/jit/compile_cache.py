@@ -15,27 +15,45 @@ recapture.
 shape, and :func:`warmup` builds (captures) known signatures before the
 first step.
 
-The persistent XLA compilation cache of the reference (``initialize``,
-``sweep``, ``cache_stats``, ``resolve_cache_dir``) has no counterpart
-yet (ROADMAP queue A4), nor have the retrace metrics and flight-recorder
-events (queue A5).
+The persistent half is the cache of kernel libraries that
+``ops/cuda/_build.py`` compiles with nvcc (the reference's is JAX's XLA
+cache): :func:`resolve_cache_dir` places it by ``FLAGS_compile_cache_dir``
+(``auto`` = ``build/kernels`` beside the package; a path; the
+reference's disabled values = a fresh temporary directory for this
+process), :func:`initialize` arms it (and :func:`sweep`s it),
+:func:`sweep` evicts least-recently-used libraries, each with its nvcc
+report, beyond ``FLAGS_compile_cache_max_bytes``, and :func:`cache_stats`
+reads the directory's size and ``_build``'s hits and misses.  nvcc has no
+compile-time threshold, so ``FLAGS_compile_cache_min_compile_secs`` keeps
+its default and refuses others.  The reference's metrics, spans and
+flight-recorder events (``jit.persistent_cache_*``, ``jit.cache``, the
+retrace events) are ROADMAP queue A5.
 """
 
 from __future__ import annotations
 
+import atexit
 import functools
+import os
+import shutil
+import tempfile
 import threading
 import warnings
-from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence
+from pathlib import Path
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
-from ..flags import get_flags
+from ..flags import get_flags, on_flag_set
 
-__all__ = ["note_trace", "counted", "trace_counts", "retrace_count",
+__all__ = ["initialize", "ensure_initialized", "resolve_cache_dir",
+           "cache_stats", "sweep", "note_trace", "counted", "trace_counts", "retrace_count",
            "reset_trace_counts", "pad_to_batch", "warmup", "in_warmup",
            "as_struct", "TensorSpec"]
+
+_DISABLED_VALUES = {"", "0", "off", "none", "false", "disabled"}
 
 _lock = threading.Lock()
 # name -> [traces so far, signature of the latest]
@@ -43,6 +61,139 @@ _trace_counts: Dict[str, List[Any]] = {}
 _warned: set = set()
 _tls = threading.local()
 
+
+# ---------------------------------------------------------------------------
+# The persistent cache of kernel libraries
+# ---------------------------------------------------------------------------
+
+_initialized = False
+_armed_dir: Optional[str] = None
+_process_dir: Optional[str] = None
+
+
+def _default_dir() -> str:
+    return str(Path(__file__).resolve().parents[2] / "build" / "kernels")
+
+
+def _fresh_process_dir() -> str:
+    """A temporary directory of this process's own, removed at exit."""
+    global _process_dir
+    if _process_dir is None:
+        _process_dir = tempfile.mkdtemp(prefix="paddle_tpu_torch-kernels-")
+        atexit.register(shutil.rmtree, _process_dir, True)
+    return _process_dir
+
+
+def resolve_cache_dir() -> str:
+    """The directory ``FLAGS_compile_cache_dir`` names: ``auto`` is
+    ``build/kernels`` beside the package, a path is itself, and the
+    reference's disabled values (``off``, ``none``, ``""``, ...) give a
+    fresh temporary directory for this process, so nothing persists."""
+    raw = str(get_flags("compile_cache_dir")).strip()
+    if raw.lower() in _DISABLED_VALUES:
+        return _fresh_process_dir()
+    return _default_dir() if raw.lower() == "auto" else raw
+
+
+def initialize(cache_dir: Optional[str] = None) -> str:
+    """Arm the kernel cache at ``cache_dir`` (default: the flag's
+    directory) and sweep it; returns the directory in use.  A directory
+    that cannot be made degrades to a fresh temporary one, with a
+    warning (the reference disables persistence there)."""
+    global _initialized, _armed_dir
+    with _lock:
+        d = cache_dir if cache_dir is not None else resolve_cache_dir()
+        try:
+            os.makedirs(d, exist_ok=True)
+        except OSError as e:
+            warnings.warn(
+                f"paddle_tpu_torch: kernel cache directory {d!r} is not "
+                f"writable ({e}); kernels are built in a temporary "
+                f"directory of this process instead. Point "
+                f"FLAGS_compile_cache_dir somewhere writable to keep "
+                f"them.", stacklevel=2)
+            d = _fresh_process_dir()
+        _armed_dir = d
+        _initialized = True
+    sweep(cache_dir=d)
+    return d
+
+
+def ensure_initialized() -> str:
+    """The armed directory, arming it first if needed."""
+    if not _initialized:
+        initialize()
+    return _armed_dir
+
+
+def _cache_entries(d: str) -> List[Tuple[List[str], float, int]]:
+    """([library, its report], last use, bytes) per built library: the
+    report's mtime is the last use (``_build`` touches it at every hit),
+    the library's own where the report is missing."""
+    entries = []
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return entries
+    for fn in names:
+        if not (fn.startswith("lib") and fn.endswith(".so")):
+            continue
+        lib = os.path.join(d, fn)
+        report = lib[:-len(".so")] + ".ptxas"
+        paths = [lib] + ([report] if os.path.exists(report) else [])
+        try:
+            size = sum(os.path.getsize(p) for p in paths)
+            stamp = os.path.getmtime(paths[-1])
+        except OSError:      # removed mid-scan (a concurrent sweep)
+            continue
+        entries.append((paths, stamp, size))
+    return entries
+
+
+def sweep(max_bytes: Optional[int] = None,
+          cache_dir: Optional[str] = None) -> List[str]:
+    """LRU eviction: delete the least recently used libraries, each with
+    its nvcc report, until the directory (default: the armed one, else
+    the flag's) holds at most ``max_bytes`` (default
+    ``FLAGS_compile_cache_max_bytes``; 0 disables).  Returns the evicted
+    libraries' paths."""
+    d = cache_dir or _armed_dir or resolve_cache_dir()
+    if max_bytes is None:
+        max_bytes = int(get_flags("compile_cache_max_bytes"))
+    entries = _cache_entries(d)
+    total = sum(e[2] for e in entries)
+    evicted: List[str] = []
+    if max_bytes and total > max_bytes:
+        for paths, _, size in sorted(entries, key=lambda e: e[1]):
+            if total <= max_bytes:
+                break
+            try:
+                for p in paths:
+                    os.remove(p)
+            except OSError:
+                continue
+            total -= size
+            evicted.append(paths[0])
+    return evicted
+
+
+def cache_stats() -> Dict[str, Any]:
+    """The armed (else the flag's) directory, its libraries' bytes, and
+    this process's hits (libraries reused), misses (built) and requests
+    (their sum), as ``ops/cuda/_build.py`` counts them."""
+    from ..ops.cuda._build import STATS
+    d = _armed_dir or resolve_cache_dir()
+    return {"dir": d, "hits": STATS["hits"], "misses": STATS["misses"],
+            "requests": STATS["hits"] + STATS["misses"],
+            "bytes": sum(e[2] for e in _cache_entries(d))}
+
+
+on_flag_set("compile_cache_dir", lambda _value: initialize())
+
+
+# ---------------------------------------------------------------------------
+# Recapture bookkeeping
+# ---------------------------------------------------------------------------
 
 def _signature(args: Sequence[Any]) -> str:
     parts = []

@@ -939,3 +939,61 @@ def test_fused_update_refuses_what_it_cannot_take(cuda_device):
         fu.fused_update(fu.SGD, [p.double()], [p.double()], None, None,
                         None, lr, st)
     assert LAUNCH_COUNTS == before
+
+
+# -- io/worker.py's DeviceStager: the pin-memory thread's copies --------------
+
+def stager_batches(n=12, seed=0):
+    """Host batches of the train cell's kind: token ids (1, 4096) and a
+    float32 block, each distinct."""
+    r = np.random.RandomState(seed)
+    return [[r.randint(0, 32000, (1, 4096)).astype(np.int64),
+             r.randn(256, 1024).astype(np.float32)] for _ in range(n)]
+
+
+@pytest.mark.gpu
+def test_device_stager_batches_equal_host_data_under_concurrent_work(
+        cuda_device):
+    """The default stream stays busy (a device spin before every read)
+    while the stager copies ahead, and each batch is dropped at once after
+    its read is enqueued: without the handed-over event the read would
+    see memory before its copy lands, and without ``record_stream`` the
+    stager's next copy could reuse the dropped batch's memory before the
+    read ran."""
+    from paddle_tpu_torch.io.worker import DeviceStager
+    host = stager_batches()
+    reads = []
+    for batch in DeviceStager(cuda_device, depth=2).stage(iter(host)):
+        assert all(t.device.type == "cuda" for t in batch)
+        torch.cuda._sleep(20_000_000)          # ~10 ms of device work
+        reads.append([t * 1 for t in batch])   # runs after the spin
+        del batch
+    torch.cuda.synchronize()
+    assert len(reads) == len(host)
+    for got, want in zip(reads, host):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.cpu().numpy(), w)
+
+
+@pytest.mark.gpu
+def test_device_stager_consumer_waits_for_the_copy(cuda_device):
+    """The stager's stream spins before each copy, so the copy lands
+    ~10 ms after the batch is handed over: a read enqueued at once on the
+    consumer's stream must wait for the stager's event."""
+    from paddle_tpu_torch.io.worker import DeviceStager
+
+    class SlowStager(DeviceStager):
+        def _to_device(self, tree):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._stream):
+                torch.cuda._sleep(20_000_000)
+            return super()._to_device(tree)
+
+    host = stager_batches(4, seed=1)
+    sums = [batch[1].double().sum() for batch in
+            SlowStager(cuda_device, depth=2).stage(iter(host))]
+    torch.cuda.synchronize()
+    for got, want in zip(sums, host):
+        assert got.item() == pytest.approx(want[1].astype(np.float64).sum(),
+                                           rel=1e-12)

@@ -92,7 +92,8 @@ def test_flags_the_port_reads_take_any_value():
             "serving_prefill_chunk", "serving_kv_quant",
             "serving_use_rpa_kernel", "serving_prefix_cache",
             "weight_quant_group", "weight_quant_kernel",
-            "retrace_warn_threshold", "check_shapes", "exact_dropout_mask",
+            "retrace_warn_threshold", "compile_cache_dir",
+            "compile_cache_max_bytes", "check_shapes", "exact_dropout_mask",
             "fault_injection", "fault_injection_seed", "check_numerics",
             "check_nan_inf", "low_precision_op_list"}
     compat = {"check_nan_inf_level", "paddle_num_threads", "eager_op_jit",

@@ -13,7 +13,9 @@
 # from the repository root on a machine with a card and nvcc.
 set -eu
 PARENT=$1
-export PADDLE_TPU_TORCH_BUILD_DIR=$PWD/build/kernels-shared
+export FLAGS_compile_cache_dir=$PWD/build/kernels-shared
+# a tree whose ops/cuda/_build.py predates the flag reads this name
+export PADDLE_TPU_TORCH_BUILD_DIR=$FLAGS_compile_cache_dir
 for tree in . "$PARENT"; do
   (cd "$tree" && python3 -c "from paddle_tpu_torch.ops.cuda import _build; _build.build()")
 done

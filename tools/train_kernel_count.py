@@ -10,8 +10,10 @@ synchronize after the warm-up step or the capture), and
 ``after_amp_nosync`` runs chip_smoke.py's amp phase in the same process
 first.  To hold a change's kernels to its parent's in one call, unpack
 the parent (``git archive <parent> | tar -x -C build/ab/parent``), build
-both trees' kernels into one ``PADDLE_TPU_TORCH_BUILD_DIR``, run this
-script in each tree in turn, and diff the JSON files."""
+both trees' kernels into one ``FLAGS_compile_cache_dir`` (a tree whose
+``ops/cuda/_build.py`` predates the flag reads
+``PADDLE_TPU_TORCH_BUILD_DIR``: set both), run this script in each tree
+in turn, and diff the JSON files."""
 
 import json
 import sys
