@@ -20,10 +20,12 @@ and prints no result line):
    matmul's;
 3. kernel — each kernel against its plain PyTorch version on the same
    inputs at the main paths' shapes, plus edge cases (head_dim up to 256;
-   the fused optimizer update over SGD, Adam and AdamW, its dtype groups,
-   decay flags and odd sizes, the loss scaler's overflow flag set and
-   clear, timed at the train phase's 210 parameters with a null, a clear
-   and a set flag);
+   the fused optimizer update over SGD, Adam and AdamW and each later rule
+   (Momentum, Adagrad, Adamax, RMSProp plain and centered, Adadelta,
+   Rprop, NAdam, RAdam, ASGD, Lamb's two passes), its dtype groups, decay
+   flags and odd sizes, the loss scaler's overflow flag set and clear,
+   timed at the train phase's 210 parameters, AdamW with a null, a clear
+   and a set flag, each later rule with a null flag);
    kernel, plain and library times with CUDA events (L2 flushed between
    launches) and the card's bound for the same work (the ragged flash
    forward, which no path calls, at the serving chunk shape; the flash
@@ -57,11 +59,12 @@ and prints no result line):
    seeded q/k/v, T = 4096 tokens in six documents, causal, bf16: launch
    counts read around the run, outputs and gradients finite, each
    document's equal to dense ``flash_sdpa`` on that document alone;
-7. train parity — a tiny f32 Llama takes three AdamW steps on the card
-   (through the kernels) and on the CPU (through their plain versions)
-   in this process; losses and parameters must agree; then five steps
-   with a changing learning rate and the clip through the captured step,
-   against the same eager steps on the card and the CPU's step;
+7. train parity — a tiny f32 Llama takes three steps of AdamW and of
+   each later optimizer (RAdam seven) on the card (through the kernels)
+   and on the CPU (through their plain versions) in this process; losses
+   and parameters must agree; then five steps of AdamW and of Lamb with a
+   changing learning rate and the clip through the captured step, against
+   the same eager steps on the card and the CPU's step;
 8. quantized serve — Llama-7B at full width and depth quantized on the
    card by ``quantize_for_inference``: (a) int8 weights with the int8 KV
    pool, (b) int4 weights with the bf16 pool, each serving phase 4's
@@ -139,7 +142,20 @@ and prints no result line):
    (d) ``Model.summary`` and ``hapi.flops`` of the model at seq 4096.
    Keeps the start point in /dev/shm and the step-4 checkpoint in the
    temporary directory (29.5 GB free in each, and twice that in host
-   memory).
+   memory);
+14. optimizers and quantization — (a) the train cell's Llama trained by
+   Lamb (norm weights excluded from the decay): eagerly, one warm-up and
+   three timed steps, then through ``TrainStepCapture`` (warmup, capture,
+   one replay, three timed replays, one profiled replay): each flash
+   kernel once a layer a step, Lamb's two update launches a step, 0
+   recaptures, losses finite and falling, step ms, the update's device
+   ms, peak memory; (b) the nn-surface MLP (90.2 M f32): LBFGS (strong
+   Wolfe, history 10) three iterations card vs CPU, then twelve on the
+   card (7.2 GB of history); LookAhead over Momentum with ModelAverage,
+   card vs CPU; QAT (first step card vs CPU, three AdamW steps on the
+   card with the host syncs of a step counted, ``convert``); PTQ with
+   absmax observers over 4 batches card vs CPU, then a calibration dump
+   seeding a fresh model's observers.
 
 The second-to-last stdout line is ``{"kernels": [...]}`` (each row's
 ``launches`` counted on the path named by its ``launches_in``); the last is
@@ -228,6 +244,26 @@ CAPTURE_RTOL = 1e-5
 # bit), each output rounded once: float32 outputs within 1e-6 relative,
 # 16-bit outputs within one ulp of the plain version's
 FU_F32_RTOL = 1e-6
+# Lamb's trust ratio divides two norms that the kernel sums a chunk at a
+# time (f32 partials, an f64 total) and the plain version in one f64
+# reduction: the ratios agree to ~1e-7, so Lamb's p is held to one output
+# rounding plus 1e-5 of its step
+FU_LAMB_STEP_RTOL = 1e-5
+# The later rules of the fused update: rule -> (its constants as the
+# optimizers pass them, the reference's update it takes the place of)
+FU_RULES = {
+    "momentum": (dict(momentum=0.9, nesterov=True), 246),
+    "adagrad": (dict(epsilon=1e-6), 367),
+    "adamax": (dict(beta1=0.9, beta2=0.999, epsilon=1e-8), 390),
+    "rmsprop": (dict(rho=0.95, epsilon=1e-6, momentum=0.5), 418),
+    "rmsprop_centered": (dict(rho=0.95, epsilon=1e-6, momentum=0.5), 418),
+    "adadelta": (dict(rho=0.95, epsilon=1e-6), 503),
+    "rprop": (dict(etas=(0.5, 1.2), lr_range=(1e-5, 50.0)), 533),
+    "nadam": (dict(beta1=0.9, beta2=0.999, epsilon=1e-8), 550),
+    "radam": (dict(beta1=0.9, beta2=0.999, epsilon=1e-8), 569),
+    "asgd": (dict(), 603),
+    "lamb": (dict(beta1=0.9, beta2=0.999, epsilon=1e-6, coeff=0.01), 468),
+}
 # Ops phase: a registry op on CUDA tensors vs the same call on CPU tensors
 OPS_RTOL = OPS_ATOL = 1e-5
 # The profiler's kernel names of each counted kernel (the counts name the
@@ -240,7 +276,9 @@ KERNEL_NAMES = {
     "rpa_decode": r"rpa_decode_kernel", "rpa_decode_quant": r"rpa_decode_kernel",
     "qmm_i8": r"qmm_(tc|wg|skinny|tiled)_kernel",
     "qmm_i4": r"qmm_(tc|wg|skinny|tiled)_kernel",
-    "fused_update": r"fused_update_kernel"}
+    "fused_update": r"fused_update_kernel",
+    # Lamb's two passes: the norms, then the update
+    "fused_update:lamb": r"fused_update_(lamb_norms_)?kernel"}
 
 # numbers a phase measures that a later phase prints beside its own
 MEASURED: dict = {}
@@ -1367,10 +1405,12 @@ def train_param_shapes(layers: int):
     return [(vocab, hidden)] + layer * layers + [(hidden,), (hidden, vocab)]
 
 
-def fu_check(got, want, what) -> float:
+def fu_check(got, want, what, old=None) -> float:
     """One tensor of the fused update against the plain version's: f32
-    within FU_F32_RTOL relative, 16-bit within one ulp; returns the largest
-    absolute difference."""
+    within FU_F32_RTOL relative, 16-bit within one ulp, a value that is not
+    finite on one side only off; with ``old`` (Lamb's p before the step)
+    also FU_LAMB_STEP_RTOL of the step.  Returns the largest absolute
+    difference."""
     mant = {torch.float32: None, torch.float16: 10,
             torch.bfloat16: 7}[got.dtype]
     g, w = got.float(), want.float()
@@ -1380,11 +1420,18 @@ def fu_check(got, want, what) -> float:
     else:
         bound = torch.exp2(torch.floor(torch.log2(
             w.abs().clamp_min(2.0 ** -24))) - mant)
-    bad = int((diff > bound).sum())
+    if old is not None:
+        bound = bound + FU_LAMB_STEP_RTOL * (w - old.float()).abs()
+    off = ~(diff <= bound)
+    bad = int(off.sum())
     if bad:
-        raise AssertionError(f"fused_update {what}: {bad} elements past "
-                             f"the bound (max abs err "
-                             f"{diff.max().item():.3e})")
+        at = off.flatten().nonzero()[:4].flatten()
+        raise AssertionError(
+            f"fused_update {what}: {bad} elements past the bound (max abs "
+            f"err {diff.max().item():.3e}; first at {at.tolist()}: kernel "
+            f"{g.flatten()[at].tolist()}, plain {w.flatten()[at].tolist()}"
+            + ("" if old is None else
+               f", before {old.float().flatten()[at].tolist()}") + ")")
     return diff.max().item()
 
 
@@ -1459,15 +1506,224 @@ def fu_skip_checks(fu, sizes, decay):
     return cases
 
 
+def fu_rule_tensors(shapes, n_states, p_dtype, m_dtype, seed, copies=2):
+    """``copies`` identical sets of (params, grads, [states...]) on the card
+    for a later rule: p ~ N(0, 1), g ~ 0.1 N(0, 1), each state ~ U(1e-4,
+    1.1e-3) (positive: accumulators of squares, Rprop's sizes, and a
+    centered mean small beside its mean square)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    sets = [([], [], [[] for _ in range(n_states)]) for _ in range(copies)]
+    for shape in shapes:
+        p = torch.randn(shape, generator=g, device="cuda")
+        gr = 0.1 * torch.randn(shape, generator=g, device="cuda")
+        st = [1e-4 + 1e-3 * torch.rand(shape, generator=g, device="cuda")
+              for _ in range(n_states)]
+        for ps, gs, ss in sets:
+            ps.append(p.to(p_dtype, copy=True))
+            gs.append(gr.to(p_dtype, copy=True))
+            for lst, v in zip(ss, st):
+                lst.append(v.to(m_dtype, copy=True))
+        del p, gr, st
+    return sets
+
+
+def fu_kind(fu, rule: str) -> int:
+    """The fused update's kind of a rule named in FU_RULES."""
+    return next(k for k, v in fu.RULES.items() if v == rule)
+
+
+def fu_rule(fu, kind, ps, gs, states, decay, lr, step, kernel=True,
+            **kw):
+    """One call of a later rule, through the kernel or its plain
+    version."""
+    ms = (list(states) + [None] * 3)[:3]
+    f = fu.fused_update if kernel else fu.fused_update_ref
+    f(kind, ps, gs, ms[0], ms[1], decay, lr, step, m3s=ms[2],
+      **dict(FU_RULES[fu.RULES[kind]][0], **kw))
+
+
+def fu_rule_checks(fu, sizes, decay):
+    """Each later rule against its plain version over the dtype groups
+    (f32; bf16; bf16 with f32 states) at ``sizes``, two steps (6 and 7:
+    RAdam's rectified branch) with mixed decay flags (Lamb's), one launch
+    a call (Lamb two); then the loss scaler's flag over the five groups
+    amp training takes: set, every p and state bitwise unchanged (kernel
+    and plain version); clear, bitwise the kernel with a null flag and
+    within the bound of the plain version.  Returns ({rule: largest
+    error}, flag cases)."""
+    from paddle_tpu_torch.ops.cuda.attention import LAUNCH_COUNTS
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
+    errs, cases = {}, 0
+    for rule in FU_RULES:
+        kind = fu_kind(fu, rule)
+        n = fu.N_STATES[kind]
+        key = fu.count_key(kind)
+        per = 2 if kind == fu.LAMB else 1
+        err = 0.0
+        for pdt, mdt in ((f32, f32), (bf16, bf16), (bf16, f32)):
+            a, b = fu_rule_tensors(sizes, n, pdt, mdt, SEED + 93)
+            for step in (6, 7):
+                lr = torch.tensor(1e-2, device="cuda")
+                st = torch.tensor(float(step), device="cuda")
+                old = [p.clone() for p in b[0]]
+                before = LAUNCH_COUNTS[key]
+                fu_rule(fu, kind, *a, decay, lr, st)
+                if LAUNCH_COUNTS[key] - before != per:
+                    raise AssertionError(f"fused_update {rule}: "
+                                         f"{LAUNCH_COUNTS[key] - before} "
+                                         f"launches a call")
+                fu_rule(fu, kind, *b, decay, lr, st, kernel=False)
+                torch.cuda.synchronize()
+                for i in range(len(sizes)):
+                    err = max(err, fu_check(
+                        a[0][i], b[0][i], f"{rule} p[{i}] step {step}",
+                        old[i] if kind == fu.LAMB else None))
+                    for j in range(n):
+                        err = max(err, fu_check(a[2][j][i], b[2][j][i],
+                                                f"{rule} m{j + 1}[{i}]"))
+                # the next step starts from the same values on both sides
+                for x, y in zip(a[0] + sum(a[2], []), b[0] + sum(b[2], [])):
+                    x.copy_(y)
+                del old
+            del a, b
+        errs[rule] = err
+        log(f"  fused_update {rule}: agrees with the plain version over "
+            f"f32, bf16 and bf16/f32 states, sizes {sizes}, steps 6 and 7 "
+            f"(max abs err {err:.3e}; {per} launch(es) a call)")
+        for pdt, mdt in ((f32, f32), (bf16, bf16), (f16, f16), (f16, f32),
+                         (bf16, f32)):
+            a, b, c = fu_rule_tensors(sizes, n, pdt, mdt, SEED + 94,
+                                      copies=3)
+            every = lambda t: t[0] + sum(t[2], [])  # noqa: E731
+            old = [x.clone() for x in every(a)]
+            lr = torch.tensor(1e-2, device="cuda")
+            st = torch.tensor(6.0, device="cuda")
+            flag = torch.ones((), device="cuda")
+            fu_rule(fu, kind, *a, decay, lr, st, skip=flag)
+            fu_rule(fu, kind, *b, decay, lr, st, kernel=False, skip=flag)
+            torch.cuda.synchronize()
+            for t in (a, b):
+                if not all(torch.equal(x, y) for x, y in zip(every(t), old)):
+                    raise AssertionError(f"fused_update {rule} with the "
+                                         f"flag set changed a tensor "
+                                         f"({pdt}/{mdt})")
+            flag.zero_()
+            old_p = [p.clone() for p in b[0]]
+            fu_rule(fu, kind, *a, decay, lr, st, skip=flag)
+            fu_rule(fu, kind, *c, decay, lr, st)
+            fu_rule(fu, kind, *b, decay, lr, st, kernel=False, skip=flag)
+            torch.cuda.synchronize()
+            if not all(torch.equal(x, y) for x, y in zip(every(a),
+                                                          every(c))):
+                raise AssertionError(f"fused_update {rule} with the flag "
+                                     f"clear is not bitwise the null "
+                                     f"flag's ({pdt}/{mdt})")
+            for i in range(len(sizes)):
+                fu_check(a[0][i], b[0][i], f"{rule} flag clear p[{i}]",
+                         old_p[i] if kind == fu.LAMB else None)
+            cases += 1
+            del a, b, c, old, old_p
+    return errs, cases
+
+
+def fu_rule_at_train_table(fu, rule, params, gs, m1s, m2s, m3s, cache, bw,
+                           card):
+    """A later rule at the train phase's table (bf16 p and states, a null
+    flag): fresh states (the AdamW call's moments and a third list,
+    refilled), six tensors held against the plain version, then kernel,
+    plain and library times and the byte bound (Lamb also the two-pass
+    design's floor).  Returns the kernel row."""
+    kind = fu_kind(fu, rule)
+    ns = fu.N_STATES[kind]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 95)
+    states = [m1s, m2s, m3s][:ns]
+    for lst in states:
+        for t in lst:
+            t.uniform_(1e-4, 1.1e-3, generator=g)
+    flags = [t.dim() > 1 for t in params]     # Lamb: the norms excluded
+    idx = [0, 1, 2, len(params) - 3, len(params) - 2, len(params) - 1]
+    saved = [[params[j].clone()] + [s[j].clone() for s in states]
+             for j in idx]
+    before = [params[j].clone() for j in idx] if kind == fu.LAMB else None
+    lr_check = torch.tensor(1e-2, device="cuda")
+    st = torch.tensor(6.0, device="cuda")
+    fu_rule(fu, kind, params, gs, states, flags, lr_check, st,
+            cache=cache)
+    fu_rule(fu, kind, [s[0] for s in saved], [gs[j] for j in idx],
+            [[s[1 + j] for s in saved] for j in range(ns)],
+            [flags[j] for j in idx], lr_check, st, kernel=False)
+    torch.cuda.synchronize()
+    err = 0.0
+    for k, j in enumerate(idx):
+        old = None if before is None else before[k]
+        for jj, got in enumerate([params[j]] + [s[j] for s in states]):
+            err = max(err, fu_check(got, saved[k][jj],
+                                    f"{rule} train call [{j}] t{jj}",
+                                    old if jj == 0 else None))
+    del saved, before
+    lr = torch.tensor(1e-6, device="cuda")
+    ms = time_ms(lambda: fu_rule(fu, kind, params, gs, states, flags, lr,
+                                 st, cache=cache), iters=10, warmup=2)
+    plain = time_ms(lambda: fu_rule(fu, kind, params, gs, states, flags,
+                                    lr, st, kernel=False),
+                    iters=3, warmup=1)
+    lib, lib_name = None, None
+    try:
+        if kind == fu.MOMENTUM:
+            lib_name = "torch._fused_sgd_ (momentum, nesterov)"
+            lib = time_ms(lambda: torch._fused_sgd_(
+                params, gs, states[0], weight_decay=0.0, momentum=0.9,
+                lr=1e-6, dampening=0.0, nesterov=True, maximize=False,
+                is_first_step=False), iters=10, warmup=2)
+        elif kind == fu.ADAGRAD:
+            lib_name = "torch._fused_adagrad_"
+            steps = [torch.tensor(6.0, device="cuda") for _ in params]
+            lib = time_ms(lambda: torch._fused_adagrad_(
+                params, gs, states[0], steps, lr=1e-6, lr_decay=0.0,
+                weight_decay=0.0, eps=1e-6, maximize=False),
+                iters=10, warmup=2)
+    except (RuntimeError, AttributeError, TypeError,
+            NotImplementedError) as e:
+        log(f"  {lib_name} not timed: {str(e).splitlines()[0][:160]}")
+        lib = None
+    numel = sum(p.numel() for p in params)
+    per_el = 2 * (3 + 2 * ns)         # p, g read; p and each state back
+    bound = numel * per_el / bw * 1e3
+    row = {"name": fu.count_key(kind), "route": "cuda",
+           "source": "paddle_tpu_torch/ops/cuda/csrc/fused_update.cu",
+           "replaces": f"paddle_tpu/optimizer/optimizer.py:"
+                       f"{FU_RULES[rule][1]} (the XLA-fused {rule} update; "
+                       f"no Pallas kernel)",
+           "launches": None, "max_abs_err": err, "ms": ms,
+           "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+           "library_ms": lib}
+    extra = ""
+    if kind == fu.LAMB:
+        # the two passes read p, g, m1, m2 twice
+        row["bound_two_pass_ms"] = numel * 22 / bw * 1e3
+        extra = (f", the two-pass design's floor "
+                 f"{row['bound_two_pass_ms']:.3f} ms (22 B an element)")
+    log(f"  [{card}] fused_update {rule} at the train table ({len(params)} "
+        f"tensors, bf16, {ns} state(s)): kernel {ms:.3f} ms "
+        f"({bound / ms:.1%} of the bound), plain {plain:.3f} ms, library "
+        f"{'none alone' if lib_name is None else (lib_name + (' not timed' if lib is None else f' {lib:.3f} ms'))}, "
+        f"bound {bound:.3f} ms ({per_el} B an element){extra}; six tensors "
+        f"agree with the plain version (max abs err {err:.3e})")
+    return row
+
+
 def phase_fused_update(card, bw):
     """The fused update (SGD, Adam, AdamW) against its plain version over
     the dtype groups (f32; bf16; bf16 with f32 moments), mixed decay flags
     and sizes 1, 7, 4095 and 4096 x 11008, two steps each; the overflow
-    flag's cases (``fu_skip_checks``); then at the train phase's 210
-    parameters (bf16, AdamW) in one table, six of them against the plain
-    version, and its time there with a null flag, a clear flag and a set
-    one, beside the plain version's (a tensor at a time) and torch's fused
-    AdamW (``torch._fused_adamw_``)."""
+    flag's cases (``fu_skip_checks``); the later rules the same way
+    (``fu_rule_checks``); then at the train phase's 210 parameters (bf16,
+    AdamW) in one table, six of them against the plain version, and its
+    time there with a null flag, a clear flag and a set one, beside the
+    plain version's (a tensor at a time) and torch's fused AdamW
+    (``torch._fused_adamw_``); then each later rule at that table
+    (``fu_rule_at_train_table``).  Returns the kernel rows, AdamW's
+    first."""
     from paddle_tpu_torch.ops.cuda import fused_update as fu
     from paddle_tpu_torch.ops.cuda.attention import LAUNCH_COUNTS
     bf16, f32 = torch.bfloat16, torch.float32
@@ -1508,6 +1764,12 @@ def phase_fused_update(card, bw):
         f"AdamW over f32, bf16, f16, f16/f32 and bf16/f32 moments, sizes "
         f"{sizes}): set, every tensor bitwise unchanged (kernel and plain "
         f"version); clear, bitwise the plain version")
+    rule_errs, n_rule_skip = fu_rule_checks(fu, sizes, decay)
+    log(f"  fused_update's later rules with the overflow flag, "
+        f"{n_rule_skip} cases ({len(FU_RULES)} rules over f32, bf16, f16, "
+        f"f16/f32 and bf16/f32 states, sizes {sizes}): set, every tensor "
+        f"bitwise unchanged (kernel and plain version); clear, bitwise the "
+        f"null flag's and within the plain version's bound")
     torch.cuda.empty_cache()
     layers = train_layers(torch.cuda.get_device_properties(0).total_memory,
                           *TRAIN_DIMS[:2], TRAIN_DIMS[4])
@@ -1584,16 +1846,25 @@ def phase_fused_update(card, bw):
     log(f"  [{card}] the same call with the overflow flag: clear "
         f"{ms_clear:.3f} ms (null flag {ms:.3f} ms), set {ms_set:.3f} ms "
         f"(every block returns before it reads a tensor)")
-    del ps, gs, m1s, m2s, steps, cache
+    del steps
+    # the later rules at the same table; centered RMSProp's third state
+    m3s = [torch.empty_like(m) for m in m1s]
+    rule_rows = [fu_rule_at_train_table(fu, rule, ps, gs, m1s, m2s, m3s,
+                                        {}, bw, card) for rule in FU_RULES]
+    for rule, row in zip(FU_RULES, rule_rows):
+        row["max_abs_err"] = max(row["max_abs_err"], rule_errs[rule])
+        row["flag_cases_bitwise"] = n_rule_skip // len(FU_RULES)
+    del ps, gs, m1s, m2s, m3s, cache
     torch.cuda.empty_cache()
-    return {"name": "fused_update", "route": "cuda",
-            "source": "paddle_tpu_torch/ops/cuda/csrc/fused_update.cu",
-            "replaces": "paddle_tpu/optimizer/optimizer.py:330 (the "
-                        "XLA-fused AdamW update; no Pallas kernel)",
-            "launches": None, "max_abs_err": max(errs), "ms": ms,
-            "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
-            "library_ms": lib, "ms_flag_clear": ms_clear,
-            "ms_flag_set": ms_set, "flag_cases_bitwise": n_skip}
+    return [{"name": "fused_update", "route": "cuda",
+             "source": "paddle_tpu_torch/ops/cuda/csrc/fused_update.cu",
+             "replaces": "paddle_tpu/optimizer/optimizer.py:330 (the "
+                         "XLA-fused AdamW update; no Pallas kernel)",
+             "launches": None, "max_abs_err": max(errs), "ms": ms,
+             "plain_ms": plain, "bound_ms": bound, "bound_by": "bytes",
+             "library_ms": lib, "ms_flag_clear": ms_clear,
+             "ms_flag_set": ms_set, "flag_cases_bitwise": n_skip}] + \
+        rule_rows
 
 
 # -- phase 4: serve ----------------------------------------------------------
@@ -1920,7 +2191,7 @@ def phase_serve(card):
                                                llama_7b_config,
                                                llama_tiny_config)
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[4/13] serve Llama-7B (full width and depth, bf16, random weights)")
+    log("[4/14] serve Llama-7B (full width and depth, bf16, random weights)")
     t0 = time.perf_counter()
     cfg = llama_7b_config()
     model = LlamaForCausalLM(cfg, seed=SEED)
@@ -2023,9 +2294,10 @@ def train_data():
     return ids, labels
 
 
-def train_setup():
+def train_setup(make_opt=None):
     """bench_llama's model, optimizer and data at Llama-7B width, the depth
-    by train_layers; returns (layers, total memory, model, optimizer,
+    by train_layers (``make_opt(model)`` builds another optimizer in
+    place of AdamW); returns (layers, total memory, model, optimizer,
     step)."""
     from paddle_tpu_torch.models.llama import LlamaConfig, LlamaForCausalLM
     from paddle_tpu_torch.optimizer import AdamW
@@ -2037,8 +2309,8 @@ def train_setup():
                       num_attention_heads=heads, num_key_value_heads=heads,
                       max_position_embeddings=seq, dtype="bfloat16")
     model = LlamaForCausalLM(cfg, seed=SEED)
-    opt = AdamW(learning_rate=1e-4, parameters=model.parameters(),
-                weight_decay=0.01)
+    opt = make_opt(model) if make_opt else AdamW(
+        learning_rate=1e-4, parameters=model.parameters(), weight_decay=0.01)
     ids, labels = train_data()
     update_events = []
 
@@ -2062,7 +2334,7 @@ def phase_train(card, peak_ops):
     hidden, _, _, seq, _, batch = TRAIN_DIMS
     layers, total, model, opt, step = train_setup()
     n_params = model.num_params()
-    log(f"[5/13] train Llama-7B width, {layers} of 32 layers (bench.py's "
+    log(f"[5/14] train Llama-7B width, {layers} of 32 layers (bench.py's "
         f"memory rule at {total / 1e9:.1f} GB), batch {batch}, seq {seq}, "
         f"bf16, AdamW: eager, then TrainStepCapture")
     steps = 3
@@ -2126,13 +2398,18 @@ def lm_loss(model, ids, labels):
     return model.compute_loss(model(ids), labels)
 
 
-def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses):
+def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses,
+                   label="AdamW", update=("fused_update", 1),
+                   profile=False):
     """The same model and optimizer through ``TrainStepCapture``: every
     launch count set to 0 just before its warmup (forward and backward on a
     zero batch, the update on copies, then the capture) and read after one
     replay and three timed replays.  Losses finite and falling, each flash
-    kernel launched once a layer a replay, no recapture.  Returns the
-    launches of the replays (a replay's times the replays)."""
+    kernel launched once a layer a replay and the update's kernel as
+    ``update`` (key, launches a replay) says, no recapture; with
+    ``profile``, one more replay under the profiler, its kernels held to
+    the graph's record.  Returns the launches of the replays (a replay's
+    times the replays)."""
     from paddle_tpu_torch.jit import TrainStepCapture
     from paddle_tpu_torch.jit import compile_cache as cc
     from paddle_tpu_torch.jit.api import replayed_launches
@@ -2165,7 +2442,7 @@ def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses):
     launches = replayed_launches([graph])
     tokens_s = batch * seq / step_s
     flops_tok = 6.0 * model.num_params() + 12.0 * layers * hidden * seq
-    log(f"  captured (TrainStepCapture, same model and AdamW): warmup and "
+    log(f"  captured (TrainStepCapture, same model and {label}): warmup and "
         f"capture {capture_s:.2f} s; losses "
         + ", ".join(f"{x:.4f}" for x in losses)
         + f" (one replay first); recaptures after warmup {recaptures}")
@@ -2183,15 +2460,20 @@ def train_captured(card, peak_ops, model, opt, eager_step_s, eager_losses):
     if recaptures:
         raise AssertionError(f"{recaptures} recaptures after warmup")
     flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
-    # one fused update a replay: every parameter is bf16, one dtype group
-    want = {**{n: layers for n in flash}, "fused_update": 1}
+    # the update a replay: every parameter is bf16, one dtype group
+    want = {**{n: layers for n in flash}, update[0]: update[1]}
     if graph.launches != want or graph.replays != 4:
         raise AssertionError(f"captured train step launches "
                              f"{graph.launches} x {graph.replays}")
     if not all(host[n] > 0 for n in want):
         raise AssertionError(f"a kernel was not launched: {host}")
-    log(f"  captured update: fused_update {graph.launches['fused_update']} "
-        f"a replay (its device time: phase 10's profiled replay)")
+    log(f"  captured update: {update[0]} {graph.launches[update[0]]} a "
+        f"replay (its device time: "
+        + ("the profiled replay below)" if profile
+           else "phase 10's profiled replay)"))
+    if profile:
+        profile_train_step(lambda: step(ids, labels), card,
+                           f"profiled {label} train replay", graph)
     return launches
 
 
@@ -2259,7 +2541,7 @@ def phase_packed(card):
     layers, bf16 = 32, torch.bfloat16
     cu = cu_of(PACKED_DOCS)
     t, longest, scale = int(cu[-1]), max(PACKED_DOCS), 1.0 / math.sqrt(d)
-    log(f"[6/13] packed attention: flash_attn_unpadded forward and backward "
+    log(f"[6/14] packed attention: flash_attn_unpadded forward and backward "
         f"at Llama-7B attention width ({heads} heads x {d}), {layers} "
         f"layers, T={t} in documents {list(PACKED_DOCS)}, bf16, causal")
     inputs = []
@@ -2343,62 +2625,122 @@ def phase_packed(card):
     return launches
 
 
+def parity_optimizers():
+    """Phase 7's optimizers: (label, factory(parameters, learning rate or
+    None for the default), steps).  RAdam takes 7 steps: its rectified
+    branch starts at step 6."""
+    from paddle_tpu_torch import optimizer as O
+    return [
+        ("AdamW", lambda ps, lr=None: O.AdamW(
+            learning_rate=lr or 1e-3, parameters=ps, weight_decay=0.01), 3),
+        ("Momentum", lambda ps, lr=None: O.Momentum(
+            learning_rate=lr or 1e-2, momentum=0.9, use_nesterov=True,
+            parameters=ps, weight_decay=0.01), 3),
+        ("Adagrad", lambda ps, lr=None: O.Adagrad(
+            learning_rate=lr or 1e-2, parameters=ps), 3),
+        ("Adamax", lambda ps, lr=None: O.Adamax(
+            learning_rate=lr or 1e-3, parameters=ps), 3),
+        ("RMSProp", lambda ps, lr=None: O.RMSProp(
+            learning_rate=lr or 1e-3, momentum=0.5, parameters=ps), 3),
+        ("RMSProp centered", lambda ps, lr=None: O.RMSProp(
+            learning_rate=lr or 1e-3, momentum=0.5, centered=True,
+            parameters=ps), 3),
+        ("Lamb", lambda ps, lr=None: O.Lamb(
+            learning_rate=lr or 1e-3, lamb_weight_decay=0.01, parameters=ps,
+            exclude_from_weight_decay_fn=lambda p: p.dim() == 1), 3),
+        ("Adadelta", lambda ps, lr=None: O.Adadelta(
+            learning_rate=lr or 1.0, parameters=ps), 3),
+        ("Rprop", lambda ps, lr=None: O.Rprop(
+            learning_rate=lr or 1e-3, parameters=ps), 3),
+        ("NAdam", lambda ps, lr=None: O.NAdam(
+            learning_rate=lr or 1e-3, parameters=ps), 3),
+        ("RAdam", lambda ps, lr=None: O.RAdam(
+            learning_rate=lr or 1e-3, parameters=ps), 7),
+        ("ASGD", lambda ps, lr=None: O.ASGD(
+            learning_rate=lr or 1e-2, parameters=ps), 3),
+    ]
+
+
 def phase_train_parity():
-    """A tiny f32 Llama, 3 AdamW steps on the card (kernels) and on the CPU
-    (plain versions) from the same weights and batch."""
+    """A tiny f32 Llama takes each optimizer's steps (AdamW and the later
+    rules, ``parity_optimizers``) on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batch, the launch counts set
+    to 0 before each card run and read after; then AdamW and Lamb through
+    the captured step.  Returns each rule's launches on the card."""
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
-    from paddle_tpu_torch.optimizer import AdamW
-    log("[7/13] train parity: tiny f32 Llama, card vs CPU")
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from paddle_tpu_torch.ops.cuda import fused_update as fu
+    log("[7/14] train parity: tiny f32 Llama, card vs CPU")
     cfg = llama_tiny_config()            # 2 layers, GQA 4/2, head_dim 16
-    on_card = LlamaForCausalLM(cfg, seed=SEED)
-    on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
-    on_cpu.load_state_dict(on_card.state_dict())
+    base = LlamaForCausalLM(cfg, seed=SEED).state_dict()
     rng = np.random.RandomState(1)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
-    losses = {}
-    for name, model in (("card", on_card), ("cpu", on_cpu)):
-        dev = next(iter(model.parameters())).device
-        opt = AdamW(learning_rate=1e-3, parameters=model.parameters(),
-                    weight_decay=0.01)
-        losses[name] = []
-        for _ in range(3):
-            loss = model.compute_loss(model(ids.to(dev)), labels.to(dev))
-            loss.backward()
-            opt.step()
-            opt.clear_grad()
-            losses[name].append(loss.item())
-    loss_rel = max(abs(a - b) / abs(b)
-                   for a, b in zip(losses["card"], losses["cpu"]))
-    cpu_params = dict(on_cpu.named_parameters())
-    param_rel = max(((p.detach().cpu() - cpu_params[n].detach()).norm()
-                     / cpu_params[n].detach().norm()).item()
-                    for n, p in on_card.named_parameters())
-    log(f"  losses card {losses['card']} cpu {losses['cpu']}; max relative "
-        f"loss difference {loss_rel:.3e} (tol {PARITY_LOSS_RTOL}), max "
-        f"parameter relative L2 difference {param_rel:.3e} (tol "
-        f"{PARITY_PARAM_RTOL})")
-    if not loss_rel <= PARITY_LOSS_RTOL:
-        raise AssertionError(f"losses differ: {losses}")
-    if not param_rel <= PARITY_PARAM_RTOL:
-        raise AssertionError(f"parameters differ by {param_rel:.3e}")
-    if not losses["card"][-1] < losses["card"][0]:
-        raise AssertionError(f"tiny model loss did not fall: {losses}")
-    train_parity_captured()
+    launches = {}
+    for label, make, n_steps in parity_optimizers():
+        on_card = LlamaForCausalLM(cfg, seed=SEED)
+        on_cpu = LlamaForCausalLM(cfg, device="cpu", seed=SEED)
+        on_card.load_state_dict(base)
+        on_cpu.load_state_dict(base)
+        losses = {}
+        for name, model in (("card", on_card), ("cpu", on_cpu)):
+            dev = next(iter(model.parameters())).device
+            opt = make(model.parameters())
+            if name == "card":
+                reset_launch_counts()
+            losses[name] = []
+            for _ in range(n_steps):
+                loss = model.compute_loss(model(ids.to(dev)), labels.to(dev))
+                loss.backward()
+                opt.step()
+                opt.clear_grad()
+                losses[name].append(loss.item())
+            if name == "card":
+                key = fu.count_key(opt._KIND)
+                launches[key] = LAUNCH_COUNTS[key]
+                per = 2 if opt._KIND == fu.LAMB else 1
+                if launches[key] != per * n_steps:
+                    raise AssertionError(f"{label}: {key} launched "
+                                         f"{launches[key]} times in "
+                                         f"{n_steps} steps")
+        loss_rel = max(abs(a - b) / abs(b)
+                       for a, b in zip(losses["card"], losses["cpu"]))
+        cpu_params = dict(on_cpu.named_parameters())
+        param_rel = max(((p.detach().cpu() - cpu_params[n].detach()).norm()
+                         / cpu_params[n].detach().norm()).item()
+                        for n, p in on_card.named_parameters())
+        log(f"  {label}, {n_steps} steps ({key} {launches[key]} "
+            f"launches): losses card {[round(x, 6) for x in losses['card']]}"
+            f"; max relative loss difference {loss_rel:.3e} (tol "
+            f"{PARITY_LOSS_RTOL}), max parameter relative L2 difference "
+            f"{param_rel:.3e} (tol {PARITY_PARAM_RTOL})")
+        if not loss_rel <= PARITY_LOSS_RTOL:
+            raise AssertionError(f"{label}: losses differ: {losses}")
+        if not param_rel <= PARITY_PARAM_RTOL:
+            raise AssertionError(f"{label}: parameters differ by "
+                                 f"{param_rel:.3e}")
+        if not losses["card"][-1] < losses["card"][0]:
+            raise AssertionError(f"{label}: tiny model loss did not fall: "
+                                 f"{losses}")
+        del on_card, on_cpu
+    for label, make, _ in parity_optimizers():
+        if label in ("AdamW", "Lamb"):
+            train_parity_captured(label, make)
+    return launches
 
 
-def train_parity_captured():
+def train_parity_captured(label, make):
     """The tiny f32 Llama through ``TrainStepCapture`` on the card (a CUDA
-    graph), 5 steps with a LinearWarmup learning rate stepped between
-    calls and the global-norm clip, against the same steps eagerly on the
-    card and against the CPU's step (its eager body on the kernels' plain
-    versions), both within CAPTURE_RTOL."""
+    graph), 5 steps of the optimizer ``make`` builds with a LinearWarmup
+    learning rate stepped between calls and the global-norm clip, against
+    the same steps eagerly on the card and against the CPU's step (its
+    eager body on the kernels' plain versions), both within
+    CAPTURE_RTOL."""
     from paddle_tpu_torch.jit import TrainStepCapture
     from paddle_tpu_torch.models.llama import (LlamaForCausalLM,
                                                llama_tiny_config)
     from paddle_tpu_torch.nn import ClipGradByGlobalNorm
-    from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.optimizer.lr import LinearWarmup
     cfg = llama_tiny_config()
     models = {"captured": LlamaForCausalLM(cfg, seed=SEED)}
@@ -2409,10 +2751,11 @@ def train_parity_captured():
     rng = np.random.RandomState(1)
     ids = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
     labels = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 128)))
-    opts = {name: AdamW(learning_rate=LinearWarmup(
-        1e-3, warmup_steps=4, start_lr=1e-4, end_lr=1e-3),
-        parameters=m.parameters(), weight_decay=0.01,
-        grad_clip=ClipGradByGlobalNorm(1.0)) for name, m in models.items()}
+    opts = {}
+    for name, m in models.items():
+        opts[name] = make(m.parameters(), LinearWarmup(
+            1e-3, warmup_steps=4, start_lr=1e-4, end_lr=1e-3))
+        opts[name]._grad_clip = ClipGradByGlobalNorm(1.0)
     steps = {name: TrainStepCapture(models[name], opts[name], lm_loss)
              for name in ("captured", "cpu")}
     losses = {name: [] for name in models}
@@ -2444,18 +2787,21 @@ def train_parity_captured():
 
     eager_l, eager_p = worst("eager")
     cpu_l, cpu_p = worst("cpu")
-    log(f"  captured tiny f32 step, 5 steps, learning rate "
+    log(f"  captured tiny f32 step ({label}), 5 steps, learning rate "
         f"{lrs}: losses {losses['captured']}; vs eager on the card: loss "
         f"{eager_l:.3e}, parameters {eager_p:.3e}; vs the CPU: loss "
         f"{cpu_l:.3e}, parameters {cpu_p:.3e} (tol {CAPTURE_RTOL} each); "
-        f"{graph.replays} replays")
+        f"{graph.replays} replays, launches a replay {graph.launches}")
     if not (eager_l <= CAPTURE_RTOL and eager_p <= CAPTURE_RTOL):
-        raise AssertionError("captured step differs from the eager loop")
+        raise AssertionError(f"{label}: captured step differs from the "
+                             f"eager loop")
     if not (cpu_l <= CAPTURE_RTOL and cpu_p <= CAPTURE_RTOL):
-        raise AssertionError("captured step differs from the CPU's")
+        raise AssertionError(f"{label}: captured step differs from the "
+                             f"CPU's")
     if graph.replays != 5 or not losses["captured"][-1] < \
             losses["captured"][0]:
-        raise AssertionError(f"captured tiny step: {losses['captured']}")
+        raise AssertionError(f"captured tiny step ({label}): "
+                             f"{losses['captured']}")
 
 
 def set_quant_kernels(model, on: bool) -> None:
@@ -2576,7 +2922,7 @@ def phase_quant_serve(card):
                                                llama_tiny_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[8/13] quantized serve: Llama-7B (full width and depth), (a) int8 "
+    log("[8/14] quantized serve: Llama-7B (full width and depth), (a) int8 "
         "weights + int8 KV")
     launches = quant_serve_run(card, 8, "int8")
     log("  (b) int4 weights + bf16 KV")
@@ -3035,7 +3381,7 @@ def core_on_card() -> None:
 
 
 def phase_amp(card, peak_ops) -> None:
-    log("[9/13] amp train: O2 float16 with dynamic loss scaling at the "
+    log("[9/14] amp train: O2 float16 with dynamic loss scaling at the "
         "train cell's width and depth, O1, resume, the core on the card")
     t0 = time.perf_counter()
     amp_o2_full(card, peak_ops)
@@ -3058,7 +3404,7 @@ def phase_profiles(card) -> None:
                                                llama_7b_config)
     from paddle_tpu_torch.quantize import quantize_for_inference
     from paddle_tpu_torch.serving.engine import ServingEngine
-    log("[10/13] where the time goes (torch.profiler, after the timed phases)")
+    log("[10/14] where the time goes (torch.profiler, after the timed phases)")
     cfg = llama_7b_config()
     prompts = serve_prompts(SEED, cfg.vocab_size)
     for bits, kv, label in ((None, "off", "bf16"),
@@ -3285,6 +3631,9 @@ def op_cases(full: bool = False):
     c["triangular_solve_op"] = ([np.triu(spd()), f(3, 2)],
                                 dict(upper=True, transpose=True,
                                      unitriangular=False))
+    # quantization/: a 0-dim scale, values past it on both sides
+    c["fake_quant_dequant"] = ([2 * f(4, 6), np.float32(1.5)],
+                               dict(bit_length=8, channel_axis=None))
     c.update(nn_op_cases(full))
     c.update(model_op_cases())
     return c
@@ -3712,7 +4061,7 @@ def phase_ops(card):
     shapes, each launching its kernel."""
     from paddle_tpu_torch.ops.op import all_ops
     import paddle_tpu_torch.nn.functional as F
-    log("[11/13] ops: the registry on the card vs the CPU")
+    log("[11/14] ops: the registry on the card vs the CPU")
     t0 = time.perf_counter()
     cases = op_cases(full=True)
     nn_names = set(nn_op_cases(False))
@@ -3954,7 +4303,7 @@ def nn_surface_training(card):
 
 
 def phase_nn(card):
-    log("[12/13] nn surface and checkpoints, at full width")
+    log("[12/14] nn surface and checkpoints, at full width")
     t0 = time.perf_counter()
     out = flagship_round_trip(card)
     nn_surface_training(card)
@@ -4435,7 +4784,7 @@ def phase_fit(card, eager_step_ms: float, build_s: float, built: dict):
     hidden, inter, heads, seq, vocab, batch = TRAIN_DIMS
     total = torch.cuda.get_device_properties(0).total_memory
     layers = train_layers(total, hidden, inter, vocab)
-    log(f"[13/13] fit and sharded checkpoints: hapi.Model.fit of the train "
+    log(f"[13/14] fit and sharded checkpoints: hapi.Model.fit of the train "
         f"cell's Llama ({layers} layers, seq {seq}, batch {batch}, bf16) "
         f"fed by DataLoader workers through the pin-memory stager, "
         f"checkpointed by save_state_dict")
@@ -4451,6 +4800,400 @@ def phase_fit(card, eager_step_ms: float, build_s: float, built: dict):
     return out
 
 
+# -- phase 14: optimizers and quantization ----------------------------------------
+
+# The nn-surface MLP's optimizer runs take a batch of 64 tokens (the
+# parameter count, and so LBFGS's history, is the model's); its QAT steps
+# the phase-12 batch, (8, 512, 4096); the card-vs-CPU checks of QAT and
+# PTQ a batch of 512 tokens
+OPT_MLP_BATCH = (1, 64, 4096)
+QUANT_CPU_BATCH = (1, 512, 4096)
+# LBFGS card vs CPU: f32 on both sides, sums in another order, and the
+# line search branches on host readings of those sums: the loss after the
+# step and every parameter within 1e-3 relative (L2)
+LBFGS_PARITY_RTOL = 1e-3
+# QAT and PTQ card vs CPU: a value one rounding from a grid step's midpoint
+# may land on the other step (s / 127 away), a few of the millions of
+# activations: the loss, the gradients, the converted outputs within 1e-3
+# relative (L2), the observers' scales within 1e-5
+QUANT_PARITY_RTOL = 1e-3
+QUANT_SCALE_RTOL = 1e-5
+
+
+def rel_l2(a, b) -> float:
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+
+def worst_param_rel(m1, m2) -> float:
+    p2 = dict(m2.named_parameters())
+    return max(rel_l2(p, p2[n]) for n, p in m1.named_parameters())
+
+
+def lamb_full_width(card, peak_ops):
+    """(a) The train cell's Llama trained by Lamb (norms excluded from the
+    decay): eagerly, one warm-up and three timed steps with the launch
+    counts set to 0 before them and read after; then through
+    ``TrainStepCapture`` with a profiled replay.  Returns the captured
+    run's launches."""
+    from paddle_tpu_torch.ops.cuda import LAUNCH_COUNTS, reset_launch_counts
+    from paddle_tpu_torch.optimizer import Lamb
+
+    def make(model):
+        return Lamb(learning_rate=1e-4, lamb_weight_decay=0.01,
+                    parameters=model.parameters(),
+                    exclude_from_weight_decay_fn=lambda p: p.dim() == 1)
+
+    hidden, _, _, seq, _, batch = TRAIN_DIMS
+    layers, _, model, opt, step = train_setup(make)
+    n_decay = sum(opt._decay_flags(opt._parameter_list))
+    log(f"  (a) Lamb(learning_rate=1e-4, lamb_weight_decay=0.01), "
+        f"{layers} layers, seq {seq}, batch {batch}, bf16; "
+        f"{len(opt._parameter_list) - n_decay} norm weights excluded from "
+        f"the decay, {n_decay} decayed")
+    steps = 3
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses = [step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        losses.append(step())
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / steps
+    launches = dict(LAUNCH_COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    update_ms = float(np.mean([a.elapsed_time(b)
+                               for a, b in step.update_events[-steps:]]))
+    flops_tok = 6.0 * model.num_params() + 12.0 * layers * hidden * seq
+    tokens_s = batch * seq / step_s
+    expect = layers * (steps + 1)
+    flash = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
+    log(f"  losses " + ", ".join(f"{x:.4f}" for x in losses)
+        + " (warm-up step first)")
+    log(f"  [{card}] eager Lamb step {step_s * 1e3:.1f} ms (phase 5's AdamW "
+        f"step {MEASURED['train_eager_step_ms']:.1f} ms), {tokens_s:,.1f} "
+        f"tokens/s, MFU {tokens_s * flops_tok / peak_ops:.4f}; the update "
+        f"(opt.step(), CUDA events) {update_ms:.3f} ms a step; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    log(f"  launches over the {steps + 1} steps: " + ", ".join(
+        f"{n} {launches[n]}" for n in flash + ("fused_update:lamb",))
+        + f" (layers x steps = {expect}; Lamb's two passes a step)")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"Lamb losses not finite and falling: {losses}")
+    for n in flash:
+        if launches[n] != expect:
+            raise AssertionError(f"{n} launched {launches[n]} times, "
+                                 f"expected {expect}")
+    if launches["fused_update:lamb"] != 2 * (steps + 1) or \
+            launches["fused_update"]:
+        raise AssertionError(f"Lamb's update launches {launches}")
+    captured = train_captured(card, peak_ops, model, opt, step_s, losses,
+                              label="Lamb", update=("fused_update:lamb", 2),
+                              profile=True)
+    del model, opt, step
+    free_cuda()
+    return captured
+
+
+def count_syncs(fn) -> list:
+    """The host syncs ``fn`` makes, as the "file:line" of each: torch's
+    sync debug mode warns at each synchronizing CUDA call."""
+    import warnings
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return [f"{Path(w.filename).name}:{w.lineno}" for w in seen
+            if "synchroniz" in str(w.message)]
+
+
+def mlp_models():
+    """The nn-surface MLP on the card and the same weights on the CPU, in
+    eval mode (dropout off)."""
+    card_m = nn_surface_model("cuda", SEED)
+    cpu_m = nn_surface_model("cpu", SEED + 1)
+    cpu_m.set_state_dict(card_m.state_dict())
+    for m in (card_m, cpu_m):
+        m.eval()
+    return card_m, cpu_m
+
+
+def mlp_batch(shape, seed):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=g), torch.randn(shape, generator=g)
+
+
+def mlp_lbfgs(model, x, t, **kw):
+    """One LBFGS step (strong Wolfe, history 10) on the MLP's MSE loss:
+    (loss before, loss after, optimizer, seconds, addresses kept)."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import LBFGS
+    opt = LBFGS(learning_rate=1.0, line_search_fn="strong_wolfe",
+                history_size=10, parameters=model.parameters(), **kw)
+    ptrs = [p.data_ptr() for p in model.parameters()]
+
+    def closure():
+        opt.clear_grad()
+        loss = F.mse_loss(model(x), t)
+        loss.backward()
+        return loss
+
+    t0 = time.perf_counter()
+    first = float(opt.step(closure).detach())
+    with torch.no_grad():
+        after = float(F.mse_loss(model(x), t))
+    secs = time.perf_counter() - t0
+    return first, after, opt, secs, ptrs == [p.data_ptr()
+                                             for p in model.parameters()]
+
+
+def mlp_optimizers(card):
+    """(b) LBFGS, LookAhead over Momentum and ModelAverage on the
+    nn-surface MLP (90.2 M f32), card against CPU."""
+    from paddle_tpu_torch.incubate import LookAhead, ModelAverage
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    x, t = mlp_batch(OPT_MLP_BATCH, SEED + 7)
+    # LBFGS: three iterations card vs CPU, then twelve on the card alone
+    card_m, cpu_m = mlp_models()
+    res = {}
+    for name, m in (("card", card_m), ("cpu", cpu_m)):
+        dev = next(iter(m.parameters())).device
+        res[name] = mlp_lbfgs(m, x.to(dev), t.to(dev), max_iter=3)
+    loss_rel = abs(res["card"][1] - res["cpu"][1]) / abs(res["cpu"][1])
+    p_rel = worst_param_rel(card_m, cpu_m)
+    log(f"  (b) LBFGS(strong_wolfe, history_size=10), 3 iterations on "
+        f"{OPT_MLP_BATCH}: loss {res['card'][0]:.6f} -> {res['card'][1]:.6f}"
+        f" on the card ({res['card'][2]._n_evals} closure calls), "
+        f"{res['cpu'][1]:.6f} on the CPU ({res['cpu'][2]._n_evals}); card vs "
+        f"CPU: loss {loss_rel:.3e}, parameters {p_rel:.3e} (tol "
+        f"{LBFGS_PARITY_RTOL}); addresses kept {res['card'][4]}")
+    if not (loss_rel <= LBFGS_PARITY_RTOL and p_rel <= LBFGS_PARITY_RTOL
+            and res["card"][4] and res["card"][1] < res["card"][0]):
+        raise AssertionError("LBFGS: card and CPU differ, or the loss did "
+                             "not fall, or a parameter moved")
+    del cpu_m, res
+    card_m, _ = mlp_models()
+    xc, tc = x.cuda(), t.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first, after, opt, secs, kept = mlp_lbfgs(card_m, xc, tc, max_iter=12,
+                                              max_eval=40)
+    hist_gb = sum(v.numel() * v.element_size()
+                  for v in opt._s_hist + opt._y_hist) / 1e9
+    log(f"  [{card}] LBFGS, 12 iterations on the card: loss {first:.6f} -> "
+        f"{after:.6f} in {secs:.2f} s ({opt._n_evals} closure calls), "
+        f"history {len(opt._s_hist)} pairs, {hist_gb:.2f} GB; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; addresses kept "
+        f"{kept}")
+    if not (after < first and kept and len(opt._s_hist) == 10):
+        raise AssertionError(f"LBFGS on the card: loss {first} -> {after}, "
+                             f"history {len(opt._s_hist)}, kept {kept}")
+    del opt, card_m
+    free_cuda()
+    # LookAhead over Momentum, and ModelAverage over the same steps
+    card_m, cpu_m = mlp_models()
+    out = {}
+    for name, m in (("card", card_m), ("cpu", cpu_m)):
+        dev = next(iter(m.parameters())).device
+        xs, ts = x.to(dev), t.to(dev)
+        opt = LookAhead(Momentum(learning_rate=1e-3, momentum=0.9,
+                                 parameters=m.parameters()), alpha=0.5, k=2)
+        ma = ModelAverage(parameters=m.parameters())
+        ptrs = [p.data_ptr() for p in m.parameters()]
+        losses = []
+        for _ in range(4):
+            loss = F.mse_loss(m(xs), ts)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            ma.step()
+            losses.append(loss.item())
+        live = [p.detach().clone() for p in m.parameters()]
+        with ma.apply():
+            avg = [p.detach().cpu().clone() for p in m.parameters()]
+        restored = all(torch.equal(p, q) for p, q in zip(m.parameters(),
+                                                         live))
+        kept = ptrs == [p.data_ptr() for p in m.parameters()]
+        out[name] = (losses, avg, restored and kept)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(out["card"][0],
+                                                        out["cpu"][0]))
+    p_rel = worst_param_rel(card_m, cpu_m)
+    avg_rel = max(rel_l2(a, b) for a, b in zip(out["card"][1],
+                                               out["cpu"][1]))
+    log(f"  LookAhead(Momentum(1e-3, 0.9), alpha 0.5, k 2) and ModelAverage, "
+        f"4 steps: losses {[round(v, 6) for v in out['card'][0]]}; card vs "
+        f"CPU: losses {loss_rel:.3e}, parameters {p_rel:.3e}, averages "
+        f"{avg_rel:.3e} (tol {NN_PARITY_RTOL}); restored bitwise at the "
+        f"same addresses {out['card'][2]}")
+    if not (loss_rel <= NN_PARITY_RTOL and p_rel <= NN_PARITY_RTOL
+            and avg_rel <= NN_PARITY_RTOL and out["card"][2]
+            and out["card"][0][-1] < out["card"][0][0]):
+        raise AssertionError("LookAhead/ModelAverage: card and CPU differ")
+    del card_m, cpu_m, out
+    free_cuda()
+
+
+def mlp_qat(card):
+    """(b) QAT on the nn-surface MLP: card vs CPU on the first step's loss,
+    gradients and activation scales; three AdamW steps on the card at the
+    phase-12 batch with dropout off (host syncs of a step counted); then
+    ``convert``, whose output equals the QAT model's in eval mode."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.quantization import (
+        QAT, FakeQuanterChannelWiseAbsMax, FakeQuanterWithAbsMaxObserver,
+        QuantConfig)
+    cfg = QuantConfig(activation=FakeQuanterWithAbsMaxObserver,
+                      weight=FakeQuanterChannelWiseAbsMax)
+    card_m, cpu_m = mlp_models()
+    x, t = mlp_batch(QUANT_CPU_BATCH, SEED + 8)
+    first = {}
+    for name, m in (("card", card_m), ("cpu", cpu_m)):
+        QAT(cfg).quantize(m, inplace=True)
+        m.train()
+        m[2].eval()                       # dropout off
+        dev = next(iter(m.parameters())).device
+        loss = F.mse_loss(m(x.to(dev)), t.to(dev))
+        loss.backward()
+        first[name] = (loss.item(),
+                       {n: p.grad.cpu() for n, p in m.named_parameters()},
+                       [m[0].activation_quanter._scale,
+                        m[3].activation_quanter._scale])
+        m.clear_gradients()
+    loss_rel = abs(first["card"][0] - first["cpu"][0]) / abs(first["cpu"][0])
+    grad_rel = max(rel_l2(g, first["cpu"][1][n])
+                   for n, g in first["card"][1].items())
+    scale_rel = max(abs(a - b) / abs(b) for a, b in zip(first["card"][2],
+                                                        first["cpu"][2]))
+    log(f"  (b) QAT(activation FakeQuanterWithAbsMaxObserver, weight "
+        f"FakeQuanterChannelWiseAbsMax), first step on {QUANT_CPU_BATCH}, "
+        f"card vs CPU: loss {loss_rel:.3e}, gradients {grad_rel:.3e} (tol "
+        f"{QUANT_PARITY_RTOL}), activation scales {scale_rel:.3e} (tol "
+        f"{QUANT_SCALE_RTOL})")
+    if not (loss_rel <= QUANT_PARITY_RTOL and grad_rel <= QUANT_PARITY_RTOL
+            and scale_rel <= QUANT_SCALE_RTOL):
+        raise AssertionError("QAT: card and CPU differ")
+    del cpu_m, first
+    opt = AdamW(learning_rate=1e-3, parameters=card_m.parameters(),
+                weight_decay=0.01)
+    xb, tb = (v.cuda() for v in mlp_batch(NN_MODEL_BATCH, SEED + 9))
+    losses = []
+
+    def qat_step():
+        loss = F.mse_loss(card_m(xb), tb)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    losses.append(qat_step())              # builds the update's table
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses.append(qat_step())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    syncs = count_syncs(lambda: losses.append(qat_step()))
+    losses = [float(v) for v in losses]
+    card_m.eval()
+    with torch.no_grad():
+        before = card_m(xb)
+    QAT(cfg).convert(card_m, inplace=True)
+    with torch.no_grad():
+        after = card_m(xb)
+    conv_rel = rel_l2(after, before)
+    log(f"  [{card}] QAT on {NN_MODEL_BATCH}: 3 AdamW steps, losses "
+        f"{[round(v, 6) for v in losses]}, {step_ms:.1f} ms a step, "
+        f"{len(syncs)} host syncs a step (at "
+        + ", ".join(f"{site} x{syncs.count(site)}"
+                    for site in sorted(set(syncs)))
+        + f"); convert: "
+        f"{type(card_m[0]).__name__}, output vs the QAT model in eval mode "
+        f"{conv_rel:.3e} relative L2")
+    if not (all(math.isfinite(v) for v in losses)
+            and losses[-1] < losses[0] and conv_rel <= 1e-6
+            and torch.isfinite(after).all()):
+        raise AssertionError(f"QAT: losses {losses}, convert {conv_rel}")
+    del card_m, opt, before, after
+    free_cuda()
+
+
+def mlp_ptq(card):
+    """(b) PTQ on the nn-surface MLP with AbsmaxObserver and
+    AbsMaxChannelWiseWeightObserver over 4 batches, card vs CPU (the
+    observers' scales, the converted outputs); then a calibration dump
+    (``from_observers``) seeds a fresh model's observers
+    (``seed_observer``)."""
+    from paddle_tpu_torch.quantization import (
+        PTQ, AbsmaxObserver, AbsMaxChannelWiseWeightObserver, QuantConfig)
+    cfg = QuantConfig(
+        activation=AbsmaxObserver,
+        weight=lambda: AbsMaxChannelWiseWeightObserver(quant_axis=-1))
+    card_m, cpu_m = mlp_models()
+    res = {}
+    for name, m in (("card", card_m), ("cpu", cpu_m)):
+        ptq = PTQ(cfg)
+        ptq.quantize(m, inplace=True)
+        dev = next(iter(m.parameters())).device
+        with torch.no_grad():
+            for k in range(4):
+                m(mlp_batch(QUANT_CPU_BATCH, SEED + 20 + k)[0].to(dev))
+            obs = ptq._observers(m)
+            scales = {n: np.asarray(o.scales(), np.float64)
+                      for n, o in obs.items()}
+            payload = ptq.dump_calibration(m)
+            ptq.convert(m, inplace=True)
+            out = m(mlp_batch(QUANT_CPU_BATCH, SEED + 30)[0].to(dev))
+        res[name] = (scales, out, payload)
+    scale_rel = max(float(np.max(np.abs(v - res["cpu"][0][n])
+                                 / np.abs(res["cpu"][0][n])))
+                    for n, v in res["card"][0].items())
+    out_rel = rel_l2(res["card"][1], res["cpu"][1])
+    fresh, _ = mlp_models()
+    ptq = PTQ(cfg)
+    ptq.quantize(fresh, inplace=True)
+    seeded = ptq.load_calibration(fresh, res["card"][2])
+    acts = {n: o for n, o in ptq._observers(fresh).items()
+            if isinstance(o, AbsmaxObserver)}
+    same = all(o.scales() == res["card"][2]["params"][n]["absmax"]
+               for n, o in acts.items())
+    log(f"  (b) PTQ(AbsmaxObserver, AbsMaxChannelWiseWeightObserver), 4 "
+        f"batches of {QUANT_CPU_BATCH}, card vs CPU: {len(res['card'][0])} "
+        f"observers' scales {scale_rel:.3e} (tol {QUANT_SCALE_RTOL}), "
+        f"converted outputs {out_rel:.3e} (tol {QUANT_PARITY_RTOL}); "
+        f"from_observers -> seed_observer: {seeded} observers seeded, "
+        f"activation scales equal {same}")
+    if not (scale_rel <= QUANT_SCALE_RTOL and out_rel <= QUANT_PARITY_RTOL
+            and seeded == len(res["card"][0]) and same and acts):
+        raise AssertionError("PTQ: card and CPU differ, or the calibration "
+                             "round trip lost a scale")
+    del card_m, cpu_m, fresh, res
+    free_cuda()
+
+
+def phase_opt_quant(card, peak_ops):
+    """Phase 14: (a) the train cell's Llama trained by Lamb, eager and
+    captured; (b) the nn-surface MLP under LBFGS, LookAhead/ModelAverage,
+    QAT and PTQ, card against CPU.  Returns (a)'s captured launches."""
+    log("[14/14] optimizers and quantization: Lamb at the train cell's "
+        "width and depth; LBFGS, LookAhead/ModelAverage, QAT and PTQ on the "
+        "nn-surface MLP")
+    t0 = time.perf_counter()
+    launches = lamb_full_width(card, peak_ops)
+    mlp_optimizers(card)
+    mlp_qat(card)
+    mlp_ptq(card)
+    log(f"  {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4459,7 +5202,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    log("[1/13] device")
+    log("[1/14] device")
     name = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     smi = nvidia_smi()
@@ -4470,7 +5213,7 @@ def main() -> int:
         f"({bw_key})")
     log(smi)
 
-    log("[2/13] build")
+    log("[2/14] build")
     from paddle_tpu_torch.jit import compile_cache as cc
     from paddle_tpu_torch.ops.cuda import _build
     t0 = time.perf_counter()
@@ -4484,10 +5227,10 @@ def main() -> int:
     for kname, info in built.items():
         build_report(kname, info)
 
-    log("[3/13] kernel vs plain version")
+    log("[3/14] kernel vs plain version")
     rows = [phase_kernel(card, bw)] + phase_flash_kernels(card, bw) + \
         phase_varlen_kernels(card, bw) + phase_quant_kernels(card, bw) + \
-        [phase_fused_update(card, bw)]
+        phase_fused_update(card, bw)
     phase_decode_shapes(card, bw)
     phase_wide_heads(card)
     launches = {"rpa_decode": phase_serve(card)["rpa_decode"]}
@@ -4496,15 +5239,18 @@ def main() -> int:
         if n.startswith("flash_") or n == "fused_update"})
     launches.update({n: v for n, v in phase_packed(card).items()
                      if n.startswith("varlen_")})
-    phase_train_parity()
+    launches.update({n: v for n, v in phase_train_parity().items()
+                     if n.startswith("fused_update:")})
     launches.update(phase_quant_serve(card))
     phase_amp(card, PEAK_OPS[torch.float16])
     phase_profiles(card)
     phase_ops(card)
     phase_nn(card)
     phase_fit(card, MEASURED["train_eager_step_ms"], build_s, built)
+    launches.update({n: v for n, v in phase_opt_quant(
+        card, PEAK_OPS[torch.bfloat16]).items() if n == "fused_update:lamb"})
     # on the captured paths: each graph's launches a replay (checked
-    # against the profiler in phase 10) times its replays
+    # against the profiler in phases 10 and 14) times its replays
     launched_in = {"rpa_decode": "captured serve (phase 4)",
                    "flash_fwd": "captured train (phase 5)",
                    "flash_dq": "captured train (phase 5)",
@@ -4513,7 +5259,11 @@ def main() -> int:
                    "fused_update": "captured train (phase 5)",
                    "qmm_i8": "captured quantized serve (phase 8)",
                    "qmm_i4": "captured quantized serve (phase 8)",
-                   "rpa_decode_quant": "captured quantized serve (phase 8)"}
+                   "rpa_decode_quant": "captured quantized serve (phase 8)",
+                   "fused_update:lamb": "captured Lamb train (phase 14)"}
+    launched_in.update({n: "train parity (phase 7)" for n in launches
+                        if n.startswith("fused_update:")
+                        and n not in launched_in})
     for row in rows:
         if row["name"] in launches:
             row["launches"] = launches[row["name"]]

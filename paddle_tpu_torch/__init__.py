@@ -20,10 +20,15 @@ captured), and the op surface:
                        (paddle_tpu_torch.save / load)
   models/llama.py    — Llama with the paged-KV serving forward and the
                        full-sequence training forward, compute_loss
-  optimizer/         — SGD, Adam, AdamW (in place, one fused kernel launch
-                       a dtype group on the card; parameter groups,
+  optimizer/         — SGD, Momentum, Adam, AdamW, Adagrad, Adamax,
+                       RMSProp, Lamb, Adadelta, Rprop, NAdam, RAdam, ASGD
+                       (in place, one fused kernel launch a dtype group
+                       on the card, Lamb two; parameter groups,
                        state_dict, the device-side skip of loss
-                       scaling), LR schedulers
+                       scaling), LBFGS, LR schedulers
+  incubate/          — LookAhead, ModelAverage
+  quantization/      — QAT and PTQ (QuantConfig, observers, fake quanters,
+                       fake_quant_dequant with its straight-through grad)
   amp/               — auto_cast (O1/O2 at the reference's call sites),
                        decorate, GradScaler (no host sync a step),
                        debugging (check_numerics, operator stats)
@@ -81,6 +86,7 @@ from .autograd.backward_api import grad  # noqa: F401,E402
 # the modules that register the rest of the reference's registry ops
 from . import models, quantize, serving  # noqa: F401,E402
 from . import distributed, hapi, io, metric  # noqa: F401,E402
+from . import incubate, optimizer, quantization  # noqa: F401,E402
 from .hapi import Model, flops, summary  # noqa: F401,E402
 
 import torch as _torch  # noqa: E402

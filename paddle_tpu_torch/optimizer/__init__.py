@@ -1,7 +1,12 @@
 """paddle_tpu_torch.optimizer (counterpart of ``paddle_tpu/optimizer``):
-SGD, Adam and AdamW, updating in place, and the LR schedulers."""
+the reference's optimizers, updating in place through one hand-written
+multi-tensor kernel on the card, LBFGS, and the LR schedulers."""
 
 from . import lr  # noqa: F401
-from .optimizer import SGD, Adam, AdamW, Optimizer  # noqa: F401
+from .optimizer import (Adadelta, Adagrad, Adam, Adamax, AdamW, ASGD, Lamb,  # noqa: F401
+                        Momentum, NAdam, Optimizer, RAdam, RMSProp, Rprop, SGD)
+from .lbfgs import LBFGS  # noqa: F401
 
-__all__ = ["lr", "Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["lr", "Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adamax", "RMSProp", "Lamb", "Adadelta", "Rprop", "NAdam",
+           "RAdam", "ASGD", "LBFGS"]

@@ -1,4 +1,5 @@
-"""Optimizer base and SGD, Adam, AdamW (counterpart of
+"""Optimizer base and SGD, Momentum, Adam, AdamW, Adagrad, Adamax, RMSProp,
+Lamb, Adadelta, Rprop, NAdam, RAdam, ASGD (counterpart of
 ``paddle_tpu/optimizer/optimizer.py``).
 
 The reference runs one jitted update over the parameter list and gets new
@@ -24,8 +25,8 @@ counter is read on the host only by ``state_dict()``.
 Parameter groups (``parameters=[{"params": [...], "learning_rate": 0.1,
 "weight_decay": 0.01}, ...]``) take Paddle's per-group options: the
 group's ``learning_rate`` multiplies the optimizer's learning rate, and
-its ``weight_decay`` replaces the optimizer's (AdamW's decoupled
-coefficient, or a regularizer).  The reference accepts groups and applies
+its ``weight_decay`` replaces the optimizer's (AdamW's and Lamb's
+decoupled coefficient, or a regularizer).  The reference accepts groups and applies
 neither option (``paddle_tpu/optimizer/optimizer.py:57-62``); without
 them a group behaves as the reference's does.  Each group takes its own
 launches of the fused update.
@@ -42,7 +43,9 @@ from ..ops.cuda import fused_update as _fu
 from ..regularizer import L2Decay
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adagrad",
+           "Adamax", "RMSProp", "Lamb", "Adadelta", "Rprop", "NAdam",
+           "RAdam", "ASGD"]
 
 
 class Optimizer:
@@ -140,8 +143,9 @@ class Optimizer:
         return [p for p in self._parameter_list
                 if p.requires_grad and p.grad is not None]
 
-    # the fused kernel's update (fused_update.SGD or .ADAM; set by each
-    # optimizer) and its constants; AdamW adds per-tensor decay flags
+    # the fused kernel's update rule (a fused_update kind; set by each
+    # optimizer) and its constants; AdamW and Lamb add per-tensor decay
+    # flags
     _KIND: Optional[int] = None
 
     def _hyper(self, group: int = 0) -> dict:
@@ -158,11 +162,17 @@ class Optimizer:
         parameter group (its decay)."""
         if self._KIND is None:
             raise NotImplementedError(f"{type(self).__name__}._update")
-        m1s, m2s = states if states else (None, None)
+        m1s, m2s, m3s = self._kernel_states(states)
         _fu.fused_update(self._KIND, params, grads, m1s, m2s,
                          self._decay_flags(params, group), lr, step,
-                         cache=self._update_tables, skip=skip,
+                         cache=self._update_tables, skip=skip, m3s=m3s,
                          **self._hyper(group))
+
+    def _kernel_states(self, states) -> list:
+        """The state lists in the kernel's order (m1, m2, m3; None where
+        the rule keeps fewer): ``_STATE_NAMES``' order unless a rule says
+        otherwise."""
+        return (list(states) + [None] * 3)[:3]
 
     def _by_group(self, params, grads=None):
         """(group index, its params, their grads) for each parameter group
@@ -190,9 +200,10 @@ class Optimizer:
         for group, ps, _ in self._by_group(params):
             states = [[self._get_state(n, p) for p in ps]
                       for n in self._STATE_NAMES]
-            m1s, m2s = states if states else (None, None)
+            m1s, m2s, m3s = self._kernel_states(states)
             _fu.prepare(self._KIND, ps, m1s, m2s,
-                        self._decay_flags(ps, group), self._update_tables)
+                        self._decay_flags(ps, group), self._update_tables,
+                        m3s=m3s)
 
     def _decoupled_wd(self) -> bool:
         return False
@@ -394,3 +405,183 @@ class AdamW(Adam):
             return [True] * len(params)
         names = self._param_names
         return [bool(fun(names.get(id(p), ""))) for p in params]
+
+
+class Momentum(Optimizer):
+    """Heavy-ball momentum, ``v = mu v + g``, with Nesterov's look-ahead
+    where ``use_nesterov``."""
+    _STATE_NAMES = ["velocity"]
+    _KIND = _fu.MOMENTUM
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 multi_precision=False, name=None) -> None:
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = float(momentum)
+        self._use_nesterov = bool(use_nesterov)
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(momentum=self._momentum, nesterov=self._use_nesterov)
+
+
+class Adagrad(Optimizer):
+    _STATE_NAMES = ["moment"]
+    _KIND = _fu.ADAGRAD
+
+    def __init__(self, learning_rate, epsilon=1e-06, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None,
+                 initial_accumulator_value=0.0,
+                 multi_precision=False) -> None:
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._epsilon = float(epsilon)
+        self._init_value = float(initial_accumulator_value)
+
+    def _init_state(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        return super()._init_state(name, p).fill_(self._init_value)
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(epsilon=self._epsilon)
+
+
+class Adamax(Optimizer):
+    _STATE_NAMES = ["moment", "inf_norm"]
+    _KIND = _fu.ADAMAX
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-08, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None) -> None:
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(beta1=self._beta1, beta2=self._beta2,
+                    epsilon=self._epsilon)
+
+
+class RMSProp(Optimizer):
+    """``centered`` keeps the mean gradient; uncentered, the reference
+    still keeps that state (zeros), and so does the port, but the kernel
+    neither reads nor writes it."""
+    _STATE_NAMES = ["mean_square", "mean_grad", "momentum_acc"]
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None) -> None:
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho = float(rho)
+        self._epsilon = float(epsilon)
+        self._momentum = float(momentum)
+        self._centered = bool(centered)
+        self._KIND = _fu.RMSPROP_CENTERED if centered else _fu.RMSPROP
+
+    def _kernel_states(self, states) -> list:
+        mean_square, mean_grad, momentum_acc = states
+        return [mean_square, momentum_acc,
+                mean_grad if self._centered else None]
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(rho=self._rho, epsilon=self._epsilon,
+                    momentum=self._momentum)
+
+
+class Lamb(Optimizer):
+    """Layer-wise adaptive moments: Adam's direction plus ``wd * p`` where
+    ``exclude_from_weight_decay_fn(p)`` is false (every parameter without
+    it), scaled by the trust ratio ``||p|| / ||r||`` of each tensor.  Two
+    kernel launches a dtype group (the norms, then the update).  The
+    function applies in the eager and in the captured step; the
+    reference's captured step ignores it (ROADMAP queue C)."""
+    _STATE_NAMES = ["moment1", "moment2"]
+    _KIND = _fu.LAMB
+
+    def __init__(self, learning_rate=0.001, lamb_weight_decay=0.01,
+                 beta1=0.9, beta2=0.999, epsilon=1e-06, parameters=None,
+                 grad_clip=None, exclude_from_weight_decay_fn=None,
+                 multi_precision=False, name=None) -> None:
+        super().__init__(learning_rate, parameters, None, grad_clip, name,
+                         multi_precision)
+        self._beta1, self._beta2 = float(beta1), float(beta2)
+        self._epsilon = float(epsilon)
+        self._lamb_wd = float(lamb_weight_decay)
+        self._exclude_fn = exclude_from_weight_decay_fn
+
+    def _decoupled_wd(self) -> bool:
+        return True
+
+    def _coeff_of(self, group: int) -> float:
+        return float(self._param_groups[group].get("weight_decay",
+                                                   self._lamb_wd))
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(beta1=self._beta1, beta2=self._beta2,
+                    epsilon=self._epsilon, coeff=self._coeff_of(group))
+
+    def _decay_flags(self, params, group: int = 0) -> List[bool]:
+        if self._coeff_of(group) == 0.0:
+            return [False] * len(params)
+        if self._exclude_fn is None:
+            return [True] * len(params)
+        return [not self._exclude_fn(p) for p in params]
+
+
+class Adadelta(Optimizer):
+    _STATE_NAMES = ["avg_squared_grad", "avg_squared_update"]
+    _KIND = _fu.ADADELTA
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-06, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None) -> None:
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho = float(rho)
+        self._epsilon = float(epsilon)
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(rho=self._rho, epsilon=self._epsilon)
+
+
+class Rprop(Optimizer):
+    """Sign-based steps whose size grows by ``etas[1]`` while the grad
+    keeps its sign and shrinks by ``etas[0]`` where it flips, within
+    ``learning_rate_range``; the learning rate only seeds the sizes."""
+    _STATE_NAMES = ["prev_grad", "step_size"]
+    _KIND = _fu.RPROP
+
+    def __init__(self, learning_rate=0.001, learning_rate_range=(1e-5, 50),
+                 parameters=None, etas=(0.5, 1.2), grad_clip=None,
+                 name=None) -> None:
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._etas = (float(etas[0]), float(etas[1]))
+        self._lr_range = (float(learning_rate_range[0]),
+                          float(learning_rate_range[1]))
+
+    def _init_state(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        fill = self.get_lr() if name == "step_size" else 0.0
+        return torch.full(p.shape, fill, dtype=p.dtype, device=p.device)
+
+    def _hyper(self, group: int = 0) -> dict:
+        return dict(etas=self._etas, lr_range=self._lr_range)
+
+
+class NAdam(Adam):
+    _KIND = _fu.NADAM
+
+
+class RAdam(Adam):
+    _KIND = _fu.RADAM
+
+
+class ASGD(Optimizer):
+    """SGD with a running average of the parameters (``avg_param``, the
+    average of the iterates, divided by the step count)."""
+    _STATE_NAMES = ["avg_param"]
+    _KIND = _fu.ASGD
+
+    def _init_state(self, name: str, p: torch.Tensor) -> torch.Tensor:
+        # a copy: an alias would be updated in place with the parameter
+        return p.detach().clone(memory_format=torch.contiguous_format)

@@ -11,16 +11,22 @@ so dumps written by either package load in both.
   ``{param_name: entry}`` mapping and returns the payload form;
 * :func:`parse_scale_method` reads ``"absmax"`` / ``"percentile[:p]"``;
 * :func:`clip_for` turns one param's entry into the optional clip value
-  :func:`core.quantize_weight` consumes.
+  :func:`core.quantize_weight` consumes;
+* :func:`from_observers` / :func:`seed_observer` carry the
+  ``quantization/`` observers' stats into and out of the same schema, so
+  PTQ and ``quantize_for_inference`` share one calibration format.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
+
 __all__ = ["CALIBRATION_SCHEMA", "load", "load_calibration", "clip_for",
-           "parse_scale_method"]
+           "parse_scale_method", "from_observers", "seed_observer"]
 
 CALIBRATION_SCHEMA = "paddle_tpu.numerics.calibration/1"
 
@@ -93,3 +99,38 @@ def clip_for(entry: Optional[Dict[str, Any]], method: str,
     if val is None or float(val) <= 0:
         return None
     return float(val)
+
+
+def from_observers(named: Dict[str, Any], model_name: str = "observed"
+                   ) -> Dict[str, Any]:
+    """A calibration/1 payload from observers: ``named`` maps a param name
+    to an observer (anything with ``scales()``; a per-channel observer
+    gives its max) or to a scale.  The entries carry ``absmax`` only: an
+    observer never saw the whole distribution, so it has no
+    percentiles."""
+    params: Dict[str, dict] = {}
+    for name, obs in named.items():
+        s = obs.scales() if hasattr(obs, "scales") else obs
+        arr = np.asarray(s, dtype=np.float64).reshape(-1)
+        absmax = float(arr.max()) if arr.size else 0.0
+        params[name] = {"shape": list(np.asarray(s).shape),
+                        "dtype": "float32",
+                        "numel": int(arr.size),
+                        "absmax": absmax, "rms": absmax,
+                        "percentiles": {}, "nonfinite": 0}
+    return {"schema": CALIBRATION_SCHEMA, "created": time.time(),
+            "model": str(model_name), "params": params}
+
+
+def seed_observer(observer, entry: Dict[str, Any]) -> None:
+    """Push one entry's absmax into an observer's running max (a float, or
+    each channel of a per-channel observer's array), so an offline dump
+    drives PTQ's convert() without sample batches."""
+    absmax = float(entry.get("absmax", 0.0))
+    if absmax <= 0:
+        return
+    cur = getattr(observer, "_max", None)
+    if cur is None or isinstance(cur, float):
+        observer._max = max(float(cur or 0.0), absmax)
+    else:
+        observer._max = np.maximum(cur, absmax)

@@ -2,11 +2,16 @@
 (``paddle_tpu_torch/ops/cuda/fused_update.py``) on the CPU.
 
 The kernel itself runs only on the card
-(``tests/test_torch_cuda_kernels.py`` holds it to this plain version);
-here the plain version is held to the update written out in float64
-numpy, rounded once, and the optimizer's use of it is checked: lr and
-step as 0-dim float32 tensors, AdamW's decay flags from
-``apply_decay_param_fun``, nothing built for CPU tensors."""
+(``tests/test_torch_cuda_kernels.py`` holds SGD/Adam/AdamW to this plain
+version, the ``gpu``-marked cases at the end of this file the later
+rules); here the plain version is held to the update written out in
+float64 numpy, rounded once, and the optimizer's use of it is checked: lr
+and step as 0-dim float32 tensors, AdamW's decay flags from
+``apply_decay_param_fun``, nothing built for CPU tensors.  This file
+imports neither jax nor paddle_tpu, so on the card:
+
+    python -m pytest --noconftest tests/test_torch_fused_update.py -q
+"""
 
 import numpy as np
 import pytest
@@ -14,6 +19,7 @@ import torch
 
 from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.ops.cuda import fused_update as fu
+from paddle_tpu_torch.ops.cuda.attention import LAUNCH_COUNTS
 
 MANT = {torch.float32: 23, torch.bfloat16: 7, torch.float16: 10}
 
@@ -179,3 +185,188 @@ def test_an_optimizer_with_its_own_update_prepares_no_table(monkeypatch):
     w.sum().backward()
     opt.step()
     np.testing.assert_allclose(w.detach().numpy(), 0.5, rtol=1e-6)
+
+
+# -- the later rules on the card (gpu-marked: they skip without a card) -------
+
+# the later rules' constants, as the optimizers pass them
+CARD_RULES = {
+    fu.MOMENTUM: dict(momentum=0.9, nesterov=True),
+    fu.ADAGRAD: dict(epsilon=1e-6),
+    fu.ADAMAX: dict(beta1=0.9, beta2=0.999, epsilon=1e-8),
+    fu.RMSPROP: dict(rho=0.95, epsilon=1e-6, momentum=0.5),
+    fu.RMSPROP_CENTERED: dict(rho=0.95, epsilon=1e-6, momentum=0.5),
+    fu.ADADELTA: dict(rho=0.95, epsilon=1e-6),
+    fu.RPROP: dict(etas=(0.5, 1.2), lr_range=(1e-5, 50.0)),
+    fu.NADAM: dict(beta1=0.9, beta2=0.999, epsilon=1e-8),
+    fu.RADAM: dict(beta1=0.9, beta2=0.999, epsilon=1e-8),
+    fu.ASGD: dict(),
+    fu.LAMB: dict(beta1=0.9, beta2=0.999, epsilon=1e-6, coeff=0.01),
+}
+CARD_GROUPS = {"f32": (torch.float32, torch.float32),
+               "f16": (torch.float16, torch.float16),
+               "bf16": (torch.bfloat16, torch.bfloat16),
+               "f16_f32": (torch.float16, torch.float32),
+               "bf16_f32": (torch.bfloat16, torch.float32)}
+# Lamb's trust ratio: the kernel sums its norms a chunk at a time (f32
+# partials, an f64 total), the plain version in one f64 reduction; the
+# ratio agrees to ~1e-7, so p may differ by that share of its step on top
+# of one output rounding (1e-5 of the step bounds it)
+LAMB_STEP_RTOL = 1e-5
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernel runs only on the card)")
+    return torch.device("cuda")
+
+
+def card_bound(want, mant):
+    if mant is None:
+        return 1e-6 * want.abs() + 1e-30
+    return torch.exp2(torch.floor(torch.log2(
+        want.abs().clamp_min(2.0 ** -24))) - mant)
+
+
+def card_close(got, want, what, old=None):
+    """16-bit within one ulp of the plain version's, f32 within 1e-6;
+    with ``old`` (Lamb's p before the step) also LAMB_STEP_RTOL of the
+    step."""
+    mant = None if got.dtype == torch.float32 else MANT[got.dtype]
+    got, want = got.float(), want.float()
+    bound = card_bound(want, mant)
+    if old is not None:
+        bound = bound + LAMB_STEP_RTOL * (want - old.float()).abs()
+    bad = (got - want).abs() > bound
+    assert not bad.any(), f"{what}: {int(bad.sum())} elements off"
+
+
+def rule_case(device, kind, p_dtype, m_dtype, sizes, seed=0):
+    """Two identical sets (kernel, plain) of params (the second an odd
+    view, so its addresses are not 16-byte aligned), grads and the rule's
+    states, U(1e-4, 1.1e-3) (positive, so centered RMSProp's a - c^2
+    stays positive and Rprop's sizes are sizes)."""
+    g = torch.Generator().manual_seed(seed)
+    n = fu.N_STATES[kind]
+    vals = [(torch.randn(s, generator=g), 0.1 * torch.randn(s, generator=g),
+             [1e-4 + 1e-3 * torch.rand(s, generator=g) for _ in range(n)])
+            for s in sizes]
+    out = []
+    for _ in range(2):
+        ps, gs, st = [], [], [[] for _ in range(3)]
+        for i, (p, gr, ms) in enumerate(vals):
+            if i == 1:
+                pb = torch.zeros(p.numel() + 1, dtype=p_dtype, device=device)
+                gb = torch.zeros_like(pb)
+                pb[1:].copy_(p)
+                gb[1:].copy_(gr)
+                ps.append(pb[1:])
+                gs.append(gb[1:])
+            else:
+                ps.append(p.to(device, p_dtype))
+                gs.append(gr.to(device, p_dtype))
+            for j, m in enumerate(ms):
+                st[j].append(m.to(device, m_dtype))
+        out.append((ps, gs, [s if s else None for s in st]))
+    return out
+
+
+def call_rule(kind, case, decay, lr, step, kernel=True, **kw):
+    ps, gs, (m1, m2, m3) = case
+    f = fu.fused_update if kernel else fu.fused_update_ref
+    f(kind, ps, gs, m1, m2, decay, lr, step, m3s=m3,
+      **dict(CARD_RULES[kind], **kw))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(CARD_RULES),
+                         ids=[fu.RULES[k] for k in sorted(CARD_RULES)])
+@pytest.mark.parametrize("group", sorted(CARD_GROUPS))
+def test_rule_kernel_matches_plain_version(cuda_device, kind, group):
+    """Odd sizes (1, 4099 as an unaligned view, 7, 4095, 65541: tails,
+    chunk boundaries), three steps at steps 5, 6, 7 (RAdam's rectified
+    branch from 6) with mixed decay flags: p and every state within one
+    ulp (16-bit) or 1e-6 (f32) of the plain version's, Lamb's p also
+    within LAMB_STEP_RTOL of its step; one launch a call (Lamb two)."""
+    p_dtype, m_dtype = CARD_GROUPS[group]
+    sizes = [1, 4099, 7, 4095, 65541]
+    a, b = rule_case(cuda_device, kind, p_dtype, m_dtype, sizes)
+    decay = [i % 2 == 0 for i in range(len(sizes))]
+    cache = {}
+    key = fu.count_key(kind)
+    for step in (5, 6, 7):
+        lr = torch.tensor(1e-2, device=cuda_device)
+        st = torch.tensor(float(step), device=cuda_device)
+        old = [p.clone() for p in b[0]]
+        before = LAUNCH_COUNTS[key]
+        call_rule(kind, a, decay, lr, st, cache=cache)
+        assert LAUNCH_COUNTS[key] - before == (2 if kind == fu.LAMB else 1)
+        call_rule(kind, b, decay, lr, st, kernel=False)
+        torch.cuda.synchronize()
+        for i in range(len(sizes)):
+            card_close(a[0][i], b[0][i], f"p[{i}] step {step}",
+                       old[i] if kind == fu.LAMB else None)
+            # the next step starts from the same values on both sides
+            a[0][i].copy_(b[0][i])
+            for j in range(fu.N_STATES[kind]):
+                card_close(a[2][j][i], b[2][j][i], f"m{j + 1}[{i}]")
+                a[2][j][i].copy_(b[2][j][i])
+    assert len(cache) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", sorted(CARD_RULES),
+                         ids=[fu.RULES[k] for k in sorted(CARD_RULES)])
+@pytest.mark.parametrize("group", ["f32", "bf16", "f16_f32"])
+def test_rule_overflow_flag_on_the_card(cuda_device, kind, group):
+    """The loss scaler's flag set: every p and state bitwise unchanged
+    (both of Lamb's passes return first); clear: bitwise the null flag's
+    result."""
+    p_dtype, m_dtype = CARD_GROUPS[group]
+    sizes = [1, 4099, 65541]
+    a, c = rule_case(cuda_device, kind, p_dtype, m_dtype, sizes)
+    decay = [True] * len(sizes)
+    lr = torch.tensor(1e-2, device=cuda_device)
+    st = torch.tensor(6.0, device=cuda_device)
+    flag = torch.ones((), device=cuda_device)
+    tensors = lambda t: t[0] + [m for s in t[2] if s for m in s]  # noqa: E731
+    old = [x.clone() for x in tensors(a)]
+    call_rule(kind, a, decay, lr, st, skip=flag)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(tensors(a), old))
+    flag.zero_()
+    call_rule(kind, a, decay, lr, st, skip=flag)
+    call_rule(kind, c, decay, lr, st)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(tensors(a), tensors(c)))
+    assert not torch.equal(a[0][2], old[2])
+
+
+@pytest.mark.gpu
+def test_lamb_reruns_bitwise_and_optimizers_step_on_the_card(cuda_device):
+    """Lamb's two passes give the same bits from run to run (no atomics);
+    each optimizer's step() on the card launches its rule."""
+    a, b = rule_case(cuda_device, fu.LAMB, torch.bfloat16, torch.bfloat16,
+                     [5 * 32768 + 11, 3])
+    lr = torch.tensor(1e-2, device=cuda_device)
+    st = torch.tensor(2.0, device=cuda_device)
+    call_rule(fu.LAMB, a, [True, False], lr, st)
+    call_rule(fu.LAMB, b, [True, False], lr, st)
+    torch.cuda.synchronize()
+    for x, y in zip(a[0] + a[2][0] + a[2][1], b[0] + b[2][0] + b[2][1]):
+        assert torch.equal(x, y)
+    cases = [(topt.Momentum, {}), (topt.Adagrad, {"learning_rate": 0.1}),
+             (topt.Adamax, {}), (topt.RMSProp, {"learning_rate": 0.1}),
+             (topt.Lamb, {}), (topt.Adadelta, {}), (topt.Rprop, {}),
+             (topt.NAdam, {}), (topt.RAdam, {}), (topt.ASGD, {})]
+    for cls, kw in cases:
+        w = torch.nn.Parameter(torch.randn(300, device=cuda_device))
+        opt = cls(parameters=[w], **kw)
+        key = fu.count_key(opt._KIND)
+        before = LAUNCH_COUNTS[key]
+        w.grad = torch.randn(300, device=cuda_device)
+        opt.step()
+        torch.cuda.synchronize()
+        assert LAUNCH_COUNTS[key] - before == (2 if cls is topt.Lamb else 1)
+        assert torch.isfinite(w).all()

@@ -40,7 +40,6 @@ from test_check_grad_sweep import SPEC, _build, _call  # noqa: E402
 # -- the registry, side by side -------------------------------------------------
 
 NOT_PORTED = {
-    **{n: "A4 (quantization/ PTQ and QAT)" for n in ("fake_quant_dequant",)},
     **{n: "A7 (distributed: ring and Ulysses attention)"
        for n in ("ring_attention", "ulysses_attention")},
     **{n: "A8 (ResNet: conv and pooling)" for n in (
@@ -82,7 +81,7 @@ def test_registry_is_tiled():
     assert not missing, f"unclassified reference ops: {sorted(missing)}"
     stale = (ported | listed) - ref - LAZY
     assert not stale, f"names the reference does not register: {stale}"
-    assert len(ported) == 228
+    assert len(ported) == 229
     # the port's infermeta rule is the reference's, op by op (a lazily
     # registered reference op has no rule of its own: "opaque")
     for n in ported:
@@ -114,6 +113,10 @@ def _ints(rng, n=2, lo=1, hi=40):
 
 
 EXTRA = {
+    # a grid of 8-bit steps with values past the scale on both sides
+    "fake_quant_dequant": lambda r: ([(2 * r.randn(3, 4)).astype(np.float32),
+                                      np.float32(1.5)],
+                                     dict(bit_length=8, channel_axis=None)),
     **{n: _cmp_pair for n in ("equal", "not_equal", "greater_equal",
                               "greater_than", "less_equal", "less_than")},
     **{n: _bools for n in ("logical_and", "logical_or", "logical_xor")},
